@@ -7,7 +7,7 @@ This script produces the measured stand-in: the from-scratch C++ ADMM oracle
 qdldl-equivalent cost model OSQP pays) solving
 
 1. the honest headline QP class (100-waypoint 6-DOF UR5e trajectory with
-   gripper workspace rows + one obstacle — what ``bench.py`` measures on TPU),
+   gripper workspace rows + one obstacle — what ``bench.py`` measures on the GPU),
    single-thread f64, and
 2. the reference example's own full-horizon QP (W=802, ``solver-example.cpp:13``).
 
@@ -82,6 +82,10 @@ def main():
     ap.add_argument("--skip-802", action="store_true")
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
+
+    from osqp_solver_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax
 

@@ -56,6 +56,10 @@ def main():
                     "search) instead of the fixed-horizon lane path")
     args = ap.parse_args()
 
+    from osqp_solver_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from osqp_solver_tpu import RobotBall, constraints as C
     from osqp_solver_tpu.gomp.planner import GOMPSolver
     from osqp_solver_tpu.parallel.mesh import make_mesh

@@ -72,6 +72,10 @@ def main():
     ap.add_argument("--quick", action="store_true")
     args = ap.parse_args()
 
+    from osqp_solver_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import jax
     import jax.numpy as jnp
 
@@ -285,10 +289,9 @@ def main():
     # ADMM amortizes ONE factorization over many solves (osqp-wrapper.h:33-43
     # cache semantics), so the numbers that matter are the cached per-
     # iteration solve and the one-time factor — measured separately, with a
-    # chunk-count sweep.  The sequential scan at B=12 is LATENCY-bound on
-    # TPU (~10k tiny sequential steps); chunking trades a ~1.5× memory-
-    # traffic redundancy for a K× cut in sequential steps, so on one chip
-    # the best K is large (r3 TPU sweep: K=64 solve 3.8 ms vs scan 40.9 ms).
+    # chunk-count sweep.  The sequential scan at B=12 is a chain of ~10k
+    # tiny latency-bound steps; chunking trades a ~1.5× memory-traffic
+    # redundancy for a K× cut in sequential steps.
     from osqp_solver_tpu.parallel.schur import schur_factor, schur_solve_cached
 
     W5 = 2000 if args.quick else 10000

@@ -70,8 +70,9 @@ def worker(args) -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    from osqp_solver_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.num_processes == 1:
         # The no-boundary BASELINE is the plain local path (same as

@@ -30,6 +30,9 @@ def main() -> int:
     ap.add_argument("--segments", type=int, default=3)
     ap.add_argument("--cpu", action="store_true", help="force CPU backend")
     args = ap.parse_args()
+    from osqp_solver_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax
 

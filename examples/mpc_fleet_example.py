@@ -10,7 +10,7 @@ warm-started every control tick on a cached KKT factorization — OSQP's
 
 Run: JAX_PLATFORMS=cpu python examples/mpc_fleet_example.py
      [--batch 8] [--ticks 10] [--waypoints 24]
-(defaults are CPU-friendly; on TPU use batch 1024 via benchmarks/mpc_fleet.py)
+(defaults are CPU-friendly; on a GPU use batch 1024 via benchmarks/mpc_fleet.py)
 """
 from __future__ import annotations
 
@@ -29,11 +29,12 @@ def main():
     ap.add_argument("--ticks", type=int, default=10)
     ap.add_argument("--waypoints", type=int, default=24)
     args = ap.parse_args()
+    from osqp_solver_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax
 
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
     import jax.numpy as jnp
     import numpy as np
 

@@ -40,10 +40,13 @@ def main() -> int:
         choices=("padded", "exact"),
         default="padded",
         help="padded: ONE compiled program for the whole time-scaling loop "
-        "(pad-to-max, TPU-friendly); exact: one program per horizon length "
+        "(pad-to-max, accelerator-friendly); exact: one program per horizon length "
         "(reference-shaped)",
     )
     args = ap.parse_args()
+    from osqp_solver_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax
 

@@ -4,7 +4,7 @@
 // (/root/reference/src/osqp-wrapper.h); OSQP itself is not vendorable here,
 // so this self-contained implementation of the same algorithm — reduced-KKT
 // ADMM with per-constraint rho, over-relaxation, residual termination at
-// OSQP-default tolerances — serves as (a) the ground-truth oracle the TPU
+// OSQP-default tolerances — serves as (a) the ground-truth oracle the JAX
 // solver is cross-validated against in tests (tests/test_native_oracle.py),
 // and (b) the single-thread CPU wall-clock anchor for BASELINE comparisons.
 //

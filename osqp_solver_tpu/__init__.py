@@ -1,16 +1,16 @@
-"""osqp_solver_tpu — TPU-native batched ADMM QP solver + GOMP trajectory stack.
+"""osqp_solver_tpu — Batched ADMM QP solver + GOMP trajectory stack.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA/Pallas framework with the capabilities of the reference
 ZPP-Robotics/OSQP-Solver (see SURVEY.md): an OSQP-semantics ADMM core
 (vmapped, fixed shapes, masked convergence), banded/block-tridiagonal KKT
-solvers with a Pallas lane-major kernel, UR5e analytical kinematics, SCP +
+solvers, a fused ADMM-chunk GPU kernel, UR5e analytical kinematics, SCP +
 horizon-scaling trajectory planning, and multi-chip scaling via
 ``jax.sharding`` meshes (batch axis) and Schur-complement horizon splits.
 
-Layer map (SURVEY.md §1, re-designed TPU-first):
+Layer map (SURVEY.md §1, re-designed for batched accelerators):
 
     ops/       ADMM core, Ruiz scaling, dense + block-tridiagonal KKT,
-               Pallas kernels, solver sessions (setup/update/solve), status
+               fused chunk kernel + backend choice, solver sessions, status
     gomp/      constraint DSL, line-obstacle geometry, static row layout,
                dense builder (test path), structured TrajectoryQP (hot path),
                SCP + time-scaling planner

@@ -2,7 +2,7 @@
 
 Host-side (numpy) re-design of
 ``/root/reference/src/constraints/constraint-builder.h`` (285 LoC).  The
-reference accumulates Eigen triplets into a sparse CSC matrix; a TPU solver
+reference accumulates Eigen triplets into a sparse CSC matrix; a batched accelerator solver
 wants fixed shapes and direct indexing, so this builder writes straight into a
 dense ``(n_rows, n_vars)`` array whose row/column layout is fixed by
 :class:`~osqp_solver_tpu.gomp.layout.TrajectoryLayout`.  The reference's

@@ -1,6 +1,6 @@
 """Box-bound constraint DSL.
 
-TPU-native re-design of the reference's optional-bound DSL
+JAX-native re-design of the reference's optional-bound DSL
 (``/root/reference/src/constraints/constraints.h:11-67``).  Instead of
 ``std::optional`` bounds, absent bounds are represented by ``±INF`` entries so
 every constraint is a fixed-shape ``(lower, upper)`` array pair — the static

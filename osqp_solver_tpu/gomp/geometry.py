@@ -1,6 +1,6 @@
 """Obstacle geometry: horizontal-line obstacles + spherical keep-outs.
 
-TPU-native re-design of ``/root/reference/src/horizontal-line.h`` (the whole
+JAX-native re-design of the reference's ``src/horizontal-line.h`` (the whole
 file, 106 LoC).  The reference operates point-by-point with scalar branches;
 here every predicate is a vectorized jnp expression over a whole ``(W, 3)``
 trajectory at once so the SCP linearization runs inside ``jit`` with static
@@ -22,7 +22,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import struct
 
 from .constraints import INF  # noqa: F401  (re-exported convenience)
 
@@ -150,7 +150,7 @@ class HorizontalLine:
 
 @struct.dataclass
 class SphereObstacle:
-    """A spherical keep-out obstacle — a TPU-native EXTENSION beyond the
+    """A spherical keep-out obstacle — an EXTENSION beyond the
     reference's only geometry (``horizontal-line.h``): every robot ball
     must stay at least ``radius + ball_radius`` from ``center``.
 
@@ -342,7 +342,7 @@ def _keepout_cut_rows(points, jac, jq, rel, rel_s, t, Rtot, gate, movable):
     low_sel = jnp.where(use_prev | use_next, low_seg, low_own)
     dmin = jnp.minimum(dist, jnp.minimum(prev_d, next_d))
     live = dmin < gate
-    # (W, N) = n·J; full precision — on TPU the bf16 matmul default would
+    # (W, N) = n·J; full precision — a reduced-precision matmul default would
     # smear the SCP row coefficients ~0.4% (ops/ pins _HI the same way)
     row = jnp.einsum(
         "wa,wan->wn", n, jac, precision=jax.lax.Precision.HIGHEST

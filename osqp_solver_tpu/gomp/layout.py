@@ -4,7 +4,7 @@ Mirrors the reference's decision-vector and constraint-row arithmetic exactly
 (``/root/reference/src/constraints/constraint-builder.h:138-151`` for
 variables, ``:30-45`` and ``:90-122`` for rows) so that assembled ``(l, A, u)``
 match the reference element-for-element.  Everything here is static Python
-int arithmetic — these numbers fix the shapes that the TPU solver compiles
+int arithmetic — these numbers fix the shapes that the solver compiles
 against.
 
 Decision vector (length ``2*W*N``): ``x = [q_0..q_{W-1}, v_0..v_{W-1}]``.

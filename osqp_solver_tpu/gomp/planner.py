@@ -1,6 +1,6 @@
 """GOMP planner: SCP loop + time-scaling horizon shrinking.
 
-TPU-native re-design of ``GOMPSolver`` (``/root/reference/src/gomp-solver.h``,
+JAX-native re-design of ``GOMPSolver`` (the reference's ``src/gomp-solver.h``,
 203 LoC).  Orchestration stays on the host (horizon lengths change shapes per
 segment — SURVEY.md §3.1), but every step of the hot path is one jitted
 device program per horizon length:
@@ -493,10 +493,8 @@ class GOMPSolver:
         Same contract and semantics as :meth:`run_batch` (SCP loop of
         solve → exact-FK check → re-linearize, ``gomp-solver.h:57-91``), but
         the whole batch is solved **together** each SCP round by
-        :func:`~osqp_solver_tpu.ops.admm_lane.solve_batched_lane` — on TPU
-        that is the streaming Pallas kernel pipeline (fused ADMM chunks,
-        streaming Ruiz, streaming termination), several× faster per solve
-        than the vmapped session path.  Per-problem SCP convergence is
+        :func:`~osqp_solver_tpu.ops.admm_lane.solve_batched_lane` (the
+        fused ADMM chunk kernel where ``ops/backend.py`` selects it).  Per-problem SCP convergence is
         masked: finished problems keep their accepted solution/status while
         the batch keeps iterating (re-solves of frozen problems are
         discarded — the batch is done when every problem is).
@@ -1090,7 +1088,7 @@ class GOMPSolver:
             for ball in self.balls:
                 if getattr(ball, "fk_jac_batched", None) is not None:
                     # SoA evaluator (models/robot.py) — avoids the 4×4 DH
-                    # padding blowup under vmap on TPU.
+                    # intermediates under vmap.
                     pts = jnp.asarray(ball.fk_jac_batched(q)[0], self.dtype)
                 else:
                     pts = jax.vmap(

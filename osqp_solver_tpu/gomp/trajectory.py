@@ -1,6 +1,6 @@
 """Trajectory objective and warm-start helpers.
 
-TPU-native equivalents of ``triDiagonalMatrix`` and ``linspace``
+JAX-native equivalents of ``triDiagonalMatrix`` and ``linspace``
 (``/root/reference/src/utils.h:50-64, 72-82``) plus the planner's warm start
 (``/root/reference/src/gomp-solver.h:105-116``).  Dense variants are numpy
 (host-side problem setup); jnp variants are provided for on-device use.

@@ -1,6 +1,6 @@
 """Structured (block-banded) trajectory QP — the hot-path problem container.
 
-This is the TPU-native re-design of the reference's sparse-triplet CSC
+This is the JAX-native re-design of the reference's sparse-triplet CSC
 assembly (``/root/reference/src/constraints/constraint-builder.h``): instead
 of a general sparse matrix, the constraint Jacobian ``A`` is stored as its
 structural blocks (all shapes static in ``(W, N)``):
@@ -34,7 +34,7 @@ from typing import Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import struct
 
 from ..ops.tridiag import (
     block_tridiag_factor,
@@ -44,7 +44,7 @@ from ..ops.tridiag import (
 )
 from .constraints import INF, INF_THRESHOLD
 
-_HI = jax.lax.Precision.HIGHEST  # exact f32 accumulation on TPU (see ops/tridiag.py)
+_HI = jax.lax.Precision.HIGHEST  # exact f32 accumulation (see ops/tridiag.py)
 from .layout import TrajectoryLayout, make_layout
 
 
@@ -83,8 +83,8 @@ class TrajectoryQP:
 
     # Static structure of the objective blocks: "block" = generic dense
     # (2N, 2N) blocks; "vel_diag" = nonzeros only on the velocity diagonal
-    # (the GOMP smoothness Laplacian, utils.h:50-64) — lets the streaming
-    # kernels collapse P norms/matvecs from 288 entries to 2N per waypoint.
+    # (the GOMP smoothness Laplacian, utils.h:50-64) — lets the fused chunk
+    # kernel rebuild the KKT coupling block from one P diagonal.
     p_structure: str = struct.field(pytree_node=False, default="block")
 
     # ------------------------------------------------------------ structure
@@ -345,8 +345,8 @@ class TrajectoryQP:
         Scatter-free: every AᵀρA contribution lands on a sub-block diagonal
         of the (2N, 2N) waypoint blocks, so each is an outer product of a
         per-waypoint vector with a constant shifted-identity mask — pure
-        broadcast adds that XLA fuses, instead of scatter HLO (which costs
-        ~30 ms/refactor at batch 1024 on TPU and dominated the honest solve).
+        broadcast adds that XLA fuses, instead of scatter HLO (which once
+        dominated the batch-1024 honest solve's refactors).
         """
         W, N = self.waypoints, self.n_dim
         r_dyn, r_pos, r_vel, r_acc, r_ws, r_obs = self._split_rows(rho_vec)
@@ -398,20 +398,10 @@ class TrajectoryQP:
         return M_diag, M_lower
 
     def kkt_factor(self, rho_vec, sigma):
-        # vmap-aware: batched callers hit the fused Pallas block-Cholesky on
-        # TPU; single problems the scan factorization.
-        from ..ops.pallas_tridiag import tridiag_factor
-        from ..ops.tridiag import BlockTridiagFactor
-
-        chol, gain = tridiag_factor(*self.kkt_blocks(rho_vec, sigma))
-        return BlockTridiagFactor(chol=chol, gain=gain)
+        return block_tridiag_factor(*self.kkt_blocks(rho_vec, sigma))
 
     def kkt_solve(self, factor, rhs):
-        # vmap-aware: batched callers hit the fused Pallas lane-major kernel
-        # on TPU (ops/pallas_tridiag.py), single problems the scan solver.
-        from ..ops.pallas_tridiag import tridiag_solve
-
-        s = tridiag_solve(factor.chol, factor.gain, self._interleave(rhs))
+        s = block_tridiag_solve(factor, self._interleave(rhs))
         return self._deinterleave(s)
 
     # --------------------------------------------------------------- dense
@@ -811,7 +801,7 @@ def linearize_workspace(
     for b, ball in enumerate(balls):
         if getattr(ball, "fk_jac_batched", None) is not None:
             # SoA batched evaluator: elementwise over (W,) — avoids the
-            # (W, 4, 4) DH-matrix tile-padding blowup on TPU (robot.py).
+            # (W, 4, 4) DH-matrix intermediates (robot.py).
             points, jac = ball.fk_jac_batched(q_traj)
             points = jnp.asarray(points, dt_)
             jac = jnp.asarray(jac, dt_)

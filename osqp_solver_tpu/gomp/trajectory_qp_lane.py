@@ -1,19 +1,15 @@
-"""Lane-major (batch-last) trajectory QP container — the TPU-resident layout.
+"""Lane-major (batch-last) trajectory QP container.
 
 The vmapped batched solver (:func:`osqp_solver_tpu.ops.admm.solve_batched`)
-keeps every array batch-*leading* ``(B, ...)``; the Pallas factor/solve
-kernels want batch-*trailing* ``(..., B)`` so the 1024-problem batch sits on
-the VPU's (sublane, lane) axes.  The ``custom_vmap`` bridge pays a relayout
-at every kernel call — measured ~3.6 ms per 59 MB operand at batch 1024 on
-v5e, which dominates both the per-iteration KKT solve and every ρ-adapt
-refactor.
-
-This container stores the whole problem batch-trailing so the entire ADMM
-loop (:mod:`osqp_solver_tpu.ops.admm_lane`) runs in the kernels' native
-layout with **zero transposes**: vectors are ``(rows..., B)``, block
-matrices ``(W, 2N, 2N, B)``.  It mirrors the semantics of
+keeps every array batch-*leading* ``(B, ...)``.  This container stores the
+whole problem batch-*trailing* — vectors are ``(rows..., B)``, block
+matrices ``(W, 2N, 2N, B)`` — so one row of one array across the batch is
+contiguous: the fused ADMM chunk kernel (:mod:`osqp_solver_tpu.ops.
+admm_fused`) reads it as one coalesced load per row.  The XLA factor and
+solve (:meth:`LaneTrajectoryQP.kkt_factor`/``kkt_solve``) move the batch
+axis to the front around their vmapped scans.  It mirrors the semantics of
 :class:`~osqp_solver_tpu.gomp.trajectory_qp.TrajectoryQP` (itself the
-TPU-native re-design of the reference's sparse CSC assembly,
+JAX-native re-design of the reference's sparse CSC assembly,
 ``/root/reference/src/constraints/constraint-builder.h``) method for method;
 parity is pinned by ``tests/test_admm_lane.py`` against the vmapped path.
 """
@@ -23,7 +19,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
 _HI = jax.lax.Precision.HIGHEST  # exact f32 accumulation (see ops/tridiag.py)
 _INF = 1e30  # matches constraints.INF (reference constraints.h:11)
@@ -396,9 +392,7 @@ class LaneTrajectoryQP:
         """``P + σI + Aᵀdiag(ρ)A`` as lane-major block-tridiagonal
         ``(diag (W, 2N, 2N, B), lower (W-1, 2N, 2N, B))``.
 
-        Scatter-free (see ``TrajectoryQP.kkt_blocks``) and already in the
-        Pallas factor kernel's native layout — no relayout between assembly
-        and factorization."""
+        Scatter-free (see ``TrajectoryQP.kkt_blocks``)."""
         W, N = self.waypoints, self.n_dim
         r_dyn, r_pos, r_vel, r_acc, r_ws, r_obs = self._split_rows(rho_vec)
         dt = self.P_diag.dtype
@@ -451,46 +445,27 @@ class LaneTrajectoryQP:
         return M_diag, M_lower
 
     def kkt_factor(self, rho_vec, sigma):
+        from ..ops.tridiag import block_tridiag_factor
+
         diag, lower = self.kkt_blocks(rho_vec, sigma)
-        if jax.default_backend() == "tpu":
-            from ..ops.pallas_tridiag import factor_lane_major
-
-            chol, gain = factor_lane_major(diag, lower)
-        else:
-            # CPU (tests): the scan factorization — interpret-mode Pallas is
-            # orders of magnitude slower and covered by its own kernel tests.
-            from ..ops.tridiag import block_tridiag_factor
-
-            f = jax.vmap(block_tridiag_factor)(
-                jnp.moveaxis(diag, -1, 0), jnp.moveaxis(lower, -1, 0)
-            )
-            chol = jnp.moveaxis(f.chol, 0, -1)
-            gain = jnp.moveaxis(f.gain, 0, -1)
-        return LaneFactor(chol=chol, gain=gain)
+        f = jax.vmap(block_tridiag_factor)(
+            jnp.moveaxis(diag, -1, 0), jnp.moveaxis(lower, -1, 0)
+        )
+        return LaneFactor(
+            chol=jnp.moveaxis(f.chol, 0, -1), gain=jnp.moveaxis(f.gain, 0, -1)
+        )
 
     def kkt_solve(self, factor, rhs):
-        s = self._interleave(rhs)
-        if jax.default_backend() == "tpu":
-            from ..ops.pallas_tridiag import solve_lane_major
+        from ..ops.tridiag import BlockTridiagFactor, block_tridiag_solve
 
-            out = solve_lane_major(factor.chol, factor.gain, s)
-        else:
-            from ..ops.tridiag import BlockTridiagFactor, block_tridiag_solve
-
-            out = jnp.moveaxis(
-                jax.vmap(
-                    lambda c, g, r: block_tridiag_solve(
-                        BlockTridiagFactor(c, g), r
-                    )
-                )(
-                    jnp.moveaxis(factor.chol, -1, 0),
-                    jnp.moveaxis(factor.gain, -1, 0),
-                    jnp.moveaxis(s, -1, 0),
-                ),
-                0,
-                -1,
-            )
-        return self._deinterleave(out)
+        out = jax.vmap(
+            lambda c, g, r: block_tridiag_solve(BlockTridiagFactor(c, g), r)
+        )(
+            jnp.moveaxis(factor.chol, -1, 0),
+            jnp.moveaxis(factor.gain, -1, 0),
+            jnp.moveaxis(self._interleave(rhs), -1, 0),
+        )
+        return self._deinterleave(jnp.moveaxis(out, 0, -1))
 
 
 @struct.dataclass

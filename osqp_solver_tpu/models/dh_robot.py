@@ -111,7 +111,7 @@ class DHRobot:
     def frames(self, q):
         """Cumulative transforms ``T_0i`` for i = 0..N; shape (N+1, 4, 4).
 
-        Full-precision matmuls: the TPU f32 default (bf16 inputs) smears a
+        Full-precision matmuls: a reduced-precision f32 default smears a
         6-link 4×4 chain by ~1e-3 tool error — enough to fail f32 IK
         tolerances and FK audits.  The chains are tiny; exactness is free."""
         with jax.default_matmul_precision("highest"):
@@ -187,7 +187,7 @@ class DHRobot:
 
         ``q``: (..., N) with arbitrary leading batch dims; returns
         ``(points (..., 3), jac (..., 3, N))`` using purely elementwise ops
-        on the leading dims (the TPU-friendly layout — see
+        on the leading dims (the accelerator-friendly layout — see
         ``docs/KERNELS.md`` round-3 addenda).  Geometric column
         ``J[:, i] = z_i × (p_link − p_i)``, identical to jacfwd of the
         matrix path (pinned by ``tests/test_dh_robot.py``).
@@ -325,8 +325,8 @@ class DHRobot:
             pt, J = self.fk_jacobian_points(q, link=link)
             e = p - pt
             # dq = Jᵀ (J Jᵀ + λ² I)⁻¹ e  (3×3 solve — cheap at any N).
-            # HIGHEST matmul precision: on TPU the default f32 matmul runs
-            # at bf16 input precision, which stalls DLS short of the f32
+            # HIGHEST matmul precision: a reduced-precision f32 default
+            # (bf16 passes, TF32) stalls DLS short of the f32
             # tolerance; these products are tiny, so exactness is free.
             hi = jax.lax.Precision.HIGHEST
             JJt = jnp.matmul(J, J.T, precision=hi) + lam2 * eye3
@@ -336,7 +336,8 @@ class DHRobot:
             return q + dq
 
         # default_matmul_precision: jnp.linalg.solve's blocked LU also runs
-        # matmuls at the backend default (bf16 inputs on TPU), which stalls
+        # matmuls at the backend default (reduced precision on
+        # accelerators), which stalls
         # DLS ~1e-3 short of the f32 tolerance — force full precision for
         # the whole (tiny) loop.
         with jax.default_matmul_precision("highest"):
@@ -383,7 +384,7 @@ class DHRobot:
             pt, R, Jp, Jw = self.fk_pose_jacobian(q, link=link)
             e = jnp.concatenate([p - pt, orient_err(R)])
             J = jnp.concatenate([Jp, Jw], axis=0)  # (6, N)
-            # HIGHEST precision: see position_ik (TPU bf16 matmul default
+            # HIGHEST precision: see position_ik (a reduced-precision default
             # stalls DLS short of the f32 tolerance).
             hi = jax.lax.Precision.HIGHEST
             JJt = jnp.matmul(J, J.T, precision=hi) + lam2 * eye6
@@ -392,8 +393,8 @@ class DHRobot:
             )
             return q + dq
 
-        # Full-precision matmuls for the loop AND the convergence check: on
-        # TPU the f32 default runs bf16 inputs, and the check's rotᵀR trace
+        # Full-precision matmuls for the loop AND the convergence check: at
+        # a reduced-precision f32 default the check's rotᵀR trace
         # alone picks up ~1e-2 error — arccos turns that into DEGREES of
         # phantom angle error, failing solves whose rotation is exact
         # (found driving the grasp demo on hardware, round 5).

@@ -22,8 +22,7 @@ class RobotBall:
     is_gripper: bool = False
     # Optional combined batched evaluator q (..., N) -> (points (..., 3),
     # jac (..., 3, N)).  When set, the SCP linearization uses it instead of
-    # vmapping fk/jacobian — on TPU a structure-of-arrays evaluator avoids
-    # the (..., 4, 4) DH-matrix padding blowup (see models/ur5e.py
-    # fk_jacobian_points; measured 21-32x memory expansion, the planner's
-    # SCP bottleneck).  Must compute the SAME function as fk/jacobian.
+    # vmapping fk/jacobian — a structure-of-arrays evaluator avoids the
+    # (..., 4, 4) DH-matrix intermediates (see models/ur5e.py
+    # fk_jacobian_points).  Must compute the SAME function as fk/jacobian.
     fk_jac_batched: Optional[Callable] = None

@@ -1,6 +1,6 @@
 """UR5e analytical kinematics, jnp-native.
 
-TPU-native re-implementation of the capability the reference pulls in from
+JAX-native re-implementation of the capability the reference pulls in from
 the external ``Kinematics-UR5e-arm`` library (``analytical_ik.h``; use sites
 ``/root/reference/examples/solver-example.cpp:31,37-41,53,98`` and SURVEY.md
 §2.2): closed-form DH forward kinematics for the tool, the wrist ("6 back")
@@ -62,8 +62,8 @@ def link_transform(i: int, theta):
 def frames(q):
     """Cumulative transforms ``T_0i`` for i = 0..6; shape (7, 4, 4).
 
-    Full-precision matmuls: on TPU the f32 default runs bf16 inputs, and
-    the 6-link 4x4 chain accumulates ~1e-3 tool error — enough to fail
+    Full-precision matmuls: a reduced-precision f32 default (bf16 passes,
+    TF32) lets the 6-link 4x4 chain accumulate ~1e-3 tool error — enough to fail
     f32 IK tolerances and FK audits.  These chains are tiny; exactness is
     free."""
     with jax.default_matmul_precision("highest"):
@@ -118,14 +118,12 @@ jacobian_elbow_joint = jax.jacfwd(forward_kinematics_elbow_joint)
 
 
 # ---------------------------------------------------------------------------
-# Structure-of-arrays batched FK + geometric Jacobian (the TPU hot path)
+# Structure-of-arrays batched FK + geometric Jacobian (the planner hot path)
 # ---------------------------------------------------------------------------
 #
-# The 4×4-matrix FK above is correct under vmap but hostile to the TPU when
-# batched: every intermediate becomes a (..., 4, 4) array whose trailing
-# dims pad to (8, 128) vector tiles — measured 21-32× memory expansion and
-# an 18.6 ms linearization stage at batch 1024 × W=50 (the planner's SCP
-# bottleneck; benchmarks/profile_planner_round.py).  Here each rotation
+# The 4×4-matrix FK above is correct under vmap but slow when batched:
+# every intermediate becomes a (..., 4, 4) array with tiny trailing dims
+# (the planner's SCP linearization; benchmarks/profile_planner_round.py).  Here each rotation
 # entry / origin coordinate is its OWN array over the batch dims, so every
 # op is elementwise on (...,)-arrays and the batch tiles the lanes.
 #
@@ -266,7 +264,7 @@ def inverse_kinematics(T):
     """
     T = jnp.asarray(T)
     with jax.default_matmul_precision("highest"):
-        # bf16-default TPU matmuls would smear the branch reductions
+        # reduced-precision f32 matmuls would smear the branch reductions
         # (T01^-1 . T06 . T56^-1 . T45^-1 chains) by ~1e-3 — full precision
         # keeps the 8 branches at FK round-trip accuracy (see frames()).
         return _inverse_kinematics_body(T)

@@ -1,4 +1,4 @@
-"""OSQP-semantics ADMM core, TPU-native.
+"""OSQP-semantics ADMM core.
 
 Re-implements the capability of the OSQP C solver the reference drives through
 ``osqp-cpp`` (``/root/reference/src/osqp-wrapper.h:16-54``; algorithm per
@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
 from .ruiz import Scaling, identity_scaling, ruiz_equilibrate
 from .status import ExitCode
@@ -77,34 +77,14 @@ class Settings:
     polish: bool = False
     polish_delta: float = 1e-6
     polish_refine_iter: int = 3
-    # Unroll factor for the inner (per-chunk) iteration loop.  A fori_loop
-    # iteration costs ~350 µs of pure carry round-trip at batch 1024 on TPU,
-    # so unrolling pays — but the best factor is problem-dependent (full
-    # unroll regresses the workspace-row class); sweep per deployment.
+    # Unroll factor for the vmapped driver's inner (per-chunk) iteration
+    # loop.  The best factor is problem-dependent; sweep per deployment.
     inner_unroll: int = 1
-    # Fused ADMM chunk kernel (ops/admm_fused.py): "auto" = on TPU when the
-    # problem is waypoint-layout/direct/no-refine and fits the VMEM budget;
-    # "on" forces it (interpret mode off-TPU — for tests); "off" disables.
+    # Fused ADMM chunk kernel (ops/admm_fused.py, Pallas through Triton):
+    # "auto" = wherever ops/backend.py finds it runs and implements the
+    # problem and settings; "on" = demand it (ValueError where it cannot
+    # run); "off" = always the XLA path.
     fused_chunk: str = "auto"
-    # Termination reductions fused into the chunk kernel's final backward
-    # pass (emit_term): "auto" = whenever the chunk kernel runs on a
-    # vel-diag-P problem; "off" = always use the separate streaming
-    # termination kernel (A/B bench control and fallback rung).
-    term_fused: str = "auto"
-    # Factor stream form for the fused chunk kernel:
-    #   "gain" — stream the packed upper-triangular gain G = L·C⁻ᵀ in both
-    #            substitution passes (2·Tp rows/waypoint/iteration);
-    #   "hrec" — gain-free: carry h_t = C_tᵀ⁻¹w_t and apply the *sparse*
-    #            (3N-entry) KKT coupling block Ml, rebuilt in-registers from
-    #            the already-streamed stencil coefficients.  Removes the
-    #            gain stream from both passes (−2·Tp of ~870 rows/iter) and
-    #            halves the factor kernel's output traffic.  Algebraically
-    #            identical (G·w = Ml·C⁻ᵀw); needs vel-diag P (falls back to
-    #            "gain" otherwise).
-    # Default "hrec" after the round-2 TPU A/B: 13.1 vs 14.8 ms per
-    # 1024-problem honest batch (78.3k vs 69.3k QPs/s), identical iteration
-    # counts and statuses; parity pinned by tests/test_admm_fused.py.
-    factor_form: str = "hrec"
     # Safeguarded Anderson acceleration of the chunk fixed-point map
     # (lane driver only; SCS 3.0 ships the same scheme in production —
     # PAPERS.md "Trajectory of ADMM and Adaptive Acceleration").  Between
@@ -120,46 +100,18 @@ class Settings:
     anderson: int = 0
     anderson_reg: float = 1e-8
     anderson_safeguard: float = 1.5
-    # Reduced-precision KKT-factor STREAM format (lane driver).  The factor
-    # is the dominant HBM stream of the fused chunk kernel (2 substitution
-    # passes/iteration); storing it at 2 bytes halves those bytes.  Values:
-    #   "none" — f32 factor (default);
-    #   "f16"  — IEEE half storage (eps 4.9e-4, 16× finer mantissa than
-    #            bf16 at the same byte cost; range is not a concern after
-    #            Ruiz equilibration — factor entries are O(1));
-    #   "bf16" — bfloat16 storage (measured dead end in round 2: dual
-    #            residual floors above the 1e-3 tolerance; kept as the
-    #            A/B control).
-    # Rounding is applied wherever a factor is (re)built — setup and ρ-
-    # adaptation refactors — so the solve sees exactly what a 2-byte
-    # stream would carry.  Polish keeps its own full-precision factor.
+    # Reduced-precision factor values (lane driver): every factor (setup
+    # and ρ-adaptation refactors) is rounded through a 2-byte dtype and
+    # back, so the solve sees exactly the values a 2-byte factor would
+    # hold.  "none" (default), "f16" or "bf16".  Polish keeps its own
+    # full-precision factor.  A full "f16" solve converges but needs
+    # several times the iterations of a full-precision one.
     factor_round: str = "none"
-    # Stream a 2-byte factor during the ``termination_warmup`` chunk ONLY
-    # ("f16"/"bf16"; "none" disables).  Measured (benchmarks/
-    # factor_round_sweep.py): a full f16-factor solve converges 64/64 but
-    # needs ~4× the iterations (the tail crawls against the rounded
-    # operator's perturbed fixed point), while a ~20-iteration f16 PREFIX
-    # costs ≈0 extra iterations — the pre-convergence floor doesn't need
-    # the last 13 mantissa bits.  With warmup=21 of ~28 total iterations,
-    # the dominant chunk-kernel stream (the packed factor, 2 substitution
-    # passes/iteration) runs at half bytes for 3/4 of the solve.  The
-    # cadence (and the termination decisions) always use the full f32
-    # factor, so accepted solutions are optimal-to-tolerance regardless.
-    # Fused-chunk path: the kernel streams the 2-byte CHOL pack and
-    # upcasts in-register (the gain pack stays f32 — its VMEM buffer has
-    # no upcast path); flat path: value-equivalent rounding (simulation).
-    # VERDICT (round 4, measured on hardware — kept as the record, see
-    # docs/ROADMAP.md): a NEGATIVE.  Mosaic has no IEEE f16 ("f16" fails
-    # to compile on TPU), and the "bf16" warmup measured 41 vs 27
-    # iterations p50 / 25.6 vs 15.0 ms per batch — each low-mantissa
-    # warmup iteration makes ~0.7 of an f32 iteration's progress, erasing
-    # the byte saving.  Do not enable expecting a win.
-    factor_warmup_stream: str = "none"
     # Run the first this-many iterations as ONE unchecked chunk before the
     # ``check_termination`` cadence starts (lane driver).  Cold solves of a
     # known class never converge before a known floor (the honest GOMP
     # class needs ≥22), so a warmup chunk skips the early checks' fixed
-    # costs (chunk dispatch, fused-termination tail, decide/cond) while
+    # costs (chunk dispatch, termination reductions, decide/cond) while
     # executed-iteration counts stay those of the cadence.  0 disables;
     # keep 0 for warm-started sessions (re-solves converge in a few
     # iterations).
@@ -200,22 +152,20 @@ class Settings:
     # measurement is unchanged, while ct=1 users get a 36-iteration window
     # instead of 12 (every converging segment of the benchmark class needs
     # <=48 iterations total, so 36 without ANY 5% improvement is already
-    # decisive; a 48-iteration floor was measured 30% slower on the fleet
-    # headline for no observed accuracy difference).
+    # decisive; a longer floor only grinds more iterations on segments
+    # that will not certify).
     stall_min_iters: int = 36
 
 
 def refine_steps_for_horizon(waypoints: int, dtype) -> int:
-    """Auto-policy for f32 long horizons (VERDICT r1 next #4).
+    """Auto-policy for f32 long horizons.
 
-    History: round-1's W=802 slowness (2,675 iters) was traced NOT to f32
-    conditioning but to TPU matmuls defaulting to reduced-precision (bf16)
-    passes inside the scan block-Cholesky/solve — the accumulated error
-    destroyed the factor (NaN at W=802 even with 2 refinement steps).  With
-    exact f32 accumulation pinned (``ops/tridiag.py`` ``_HI``), measured on
-    TPU v5e: W=802 f32 converges in **25 iterations with zero refinement**,
-    identical to CPU f32 and the f64 oracle's quality.  Refinement is kept
-    only as a safety margin for horizons beyond the verified range."""
+    Long-horizon f32 accuracy rests on exact f32 accumulation in the scan
+    block-Cholesky/solve (``ops/tridiag.py`` ``_HI``): a reduced-precision
+    matmul there accumulates error over W steps until the factor loses
+    positive definiteness.  With it pinned, W=802 f32 converges with zero
+    refinement on the CPU exact-count harness, like the f64 oracle.
+    Refinement is kept only as a safety margin beyond that range."""
     if jnp.dtype(dtype) == jnp.dtype(jnp.float64):
         return 0
     if waypoints > 1024:
@@ -708,9 +658,8 @@ def run_admm(base, scaled, scaling: Scaling, st: ADMMState, settings: Settings) 
     def chunk(st):
         # The factor is constant within a chunk (ρ adapts only at chunk
         # boundaries).  Keep it OUT of the fori_loop carry and close over it
-        # instead, so loop-invariant work derived from it (notably the
-        # lane-major relayout feeding the Pallas solve kernel under vmap —
-        # ~100 MB/iteration at batch 1024) is hoisted out of the loop.
+        # instead, so loop-invariant work derived from it is hoisted out of
+        # the loop.
         factor = st.factor
         st = jax.lax.fori_loop(
             0,
@@ -867,8 +816,8 @@ def solve_batched(
         return jnp.any((~st.done) & (st.iterations < settings.max_iter))
 
     def chunk(st):
-        # Factor out of the inner carry (constant within a chunk) so its
-        # lane-major relayout for the Pallas kernel is hoisted — see run_admm.
+        # Factor out of the inner carry (constant within a chunk) so work
+        # derived from it is hoisted — see run_admm.
         factor = st.factor
         st = jax.lax.fori_loop(
             0,

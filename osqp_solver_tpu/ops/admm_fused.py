@@ -1,69 +1,77 @@
-"""Fused ADMM chunk kernel: whole iterations inside one Pallas program.
+"""Fused ADMM chunk kernel: ``n_iter`` OSQP iterations in one GPU launch.
 
-VERDICT r1 next-#2 / ROADMAP top perf item.  The lane-major driver
-(:mod:`osqp_solver_tpu.ops.admm_lane`) runs each ADMM iteration as ~10 XLA
-ops + 1 Pallas solve call; every op round-trips the (m, B)/(n, B) state
-through HBM, and the solve kernel streams the KKT factor through two extra
-HBM round-trips of RHS/solution.  This kernel fuses a whole chunk of
-``check_termination`` iterations into ONE program.  Per iteration:
+Pallas through Triton.  The plain path (:func:`.admm_lane._iteration` under
+a ``fori_loop``) runs each iteration as a handful of XLA fusions plus a
+block-tridiagonal solve that is a 2·W-step ``lax.scan``; on a GPU every scan
+step is at least one kernel launch.  This kernel runs a whole chunk of
+iterations per launch.  Each program owns a tile of ``block_b`` problems of
+the batch-last (lane) arrays: every quantity of one problem is one lane of a
+``(block_b,)`` vector, so one row of an array at one waypoint is one
+coalesced load, and the per-problem arithmetic is the scalar recurrence of
+the reference solver run lane-parallel.
 
-* a **forward streaming pass** over the horizon builds the reduced-KKT RHS
-  ``σx − q + Aᵀ(ρz − y)`` waypoint-by-waypoint from the stencil
-  coefficients (the Aᵀ gather is causal: waypoint t's rhs touches
-  constraint rows of waypoints t−1 and t only) and immediately runs the
-  forward block-substitution, keeping the intermediate ``w`` in VMEM;
-* a **backward streaming pass** finishes the triangular solve and applies
-  projection + dual update *in-stream*: as ``x̃_t`` emerges (descending t,
-  so ``x̃_{t+1}`` is in registers), the A-row apply, over-relaxation, box
-  projection, and dual update for waypoint t's rows complete and write back
-  in a single DMA — no intermediate vector state materializes in HBM.
+Per iteration, per program:
 
-Requires the waypoint-major row layout
-(:class:`~osqp_solver_tpu.gomp.trajectory_qp_lane.LaneTrajectoryQP` with
-``row_layout="waypoint"``): waypoint t's constraint rows are one contiguous
-(R, B) tile, and the per-iteration state ``[x_t; z_t; y_t]`` is one
-contiguous (SR, B) tile of the stacked state array.  True VMEM residency of
-the whole factor is impossible at W=100 × batch 1024 (the factor alone is
-≈15 MB vs ~16 MB VMEM), so the TPU-correct form of "factor-resident chunk"
-is this double-buffered stream fusion: the factor streams at full HBM
-bandwidth once per pass while every vector flows through VMEM exactly once
-per iteration.
+* a **forward pass** over the waypoints builds the reduced-KKT right-hand
+  side ``σx − q + Aᵀ(ρz − y)`` from the stencil coefficients (the Aᵀ gather
+  at waypoint t reads constraint rows of t−1 and t only) and runs the
+  forward block substitution;
+* a **backward pass** finishes the substitution and, as ``x̃_t`` emerges
+  (``x̃_{t+1}`` is still in registers), applies waypoint t's A-rows,
+  over-relaxation, box projection and dual update, and writes x/z/y back in
+  place.
+
+Substitution form (gain-free): with ``C_t`` the diagonal blocks of the block
+Cholesky factor and ``Ml_t`` the sparse KKT coupling block between
+waypoints t+1 and t (3N nonzeros, rebuilt from ρ and the stencil
+coefficients), the forward pass stores
+``h_t = C_tᵀ⁻¹C_t⁻¹(r_t − Ml_{t−1}h_{t−1})`` and the backward pass computes
+``x̃_t = h_t − C_tᵀ⁻¹C_t⁻¹(Ml_tᵀx̃_{t+1})``.  This is the factor's
+block-tridiagonal solve with ``G_t = Ml_t·C_t⁻ᵀ`` never formed, so only
+``C_t`` is read.  It needs the velocity-diagonal objective (the GOMP cost),
+whose coupling block adds one diagonal to ``Ml``.
+
+Termination, ρ adaptation and certificates stay in XLA
+(:func:`.admm_lane._termination`): the kernel emits the final iteration's
+deltas ``dx``/``dy`` for them.  No matrix product runs inside the kernel,
+so nothing in it can fall into TF32.
 
 Reference anchor: the OSQP ADMM hot loop (SURVEY §3.4) — per iteration one
-cached-LDLᵀ solve + projection + dual update (α = 1.6 over-relaxation).
+cached-factor KKT solve, projection and dual update (α = 1.6
+over-relaxation).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-LANE = 128
-MAX_SUBLANES = 8
+# One problem per lane and one warp per 32 problems: at multiples of 32 no
+# lane holds a replica, so every value a program stores is re-read by the
+# thread that stored it.  (Tiles of 16 to 128 problems ran equally fast on
+# an H100.)
+BLOCK_B = 32
 
 
 def _pad8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def fused_chunk_supported(qp, settings) -> bool:
-    if settings.fused_chunk == "off":
-        return False
-    if settings.fused_chunk == "auto" and jax.default_backend() != "tpu":
-        return False
-    B = qp.batch
-    if B % LANE:
-        return False
-    GS = B // LANE
-    S = min(MAX_SUBLANES, GS)
-    if GS % S:
-        return False
-    return (
-        qp.row_layout == "waypoint"
-        and settings.kkt_method == "direct"
-        and settings.kkt_refine == 0
-    )
+def kernel_unsupported_reason(qp, settings):
+    """``None`` when the kernel implements ``qp`` under ``settings``; else
+    the reason it does not (the backend module then selects XLA)."""
+    if qp.row_layout != "waypoint":
+        return "row_layout must be 'waypoint'"
+    if qp.p_structure != "vel_diag":
+        return "the gain-free substitution needs a velocity-diagonal P"
+    if qp.waypoints < 3:
+        return "needs at least 3 waypoints"
+    if settings.kkt_method != "direct":
+        return "kkt_method must be 'direct'"
+    if settings.kkt_refine:
+        return "kkt_refine is not implemented in the kernel"
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -107,13 +115,9 @@ def _coef_layout(qp):
     return off, tuple(ball_coefs), o, _pad8(o)
 
 
-# ---------------------------------------------------------------------------
-# Driver-side packing (pure jnp, shapes static)
-# ---------------------------------------------------------------------------
-
-
 def build_coef_pack(qp) -> jnp.ndarray:
-    """(W, CRp, B) stencil coefficient pack — constant per solve."""
+    """(W, CRp, B) stencil coefficient pack — constant per solve.  Rows a
+    waypoint does not have (dyn/vel at W−1, acc at W−2 and W−1) are zero."""
     W, N, B = qp.waypoints, qp.n_dim, qp.batch
     dt = qp.q_vec.dtype
     _, _, CR, CRp = _coef_layout(qp)
@@ -149,793 +153,246 @@ def build_coef_pack(qp) -> jnp.ndarray:
     return coef
 
 
-def build_lu_pack(qp) -> jnp.ndarray:
-    """(W, 2·Rp, B): per-waypoint lower bounds then upper bounds (scaled)."""
-    W = qp.waypoints
-    Rp = qp.rows_per_waypoint_padded
-    B = qp.batch
-    return jnp.concatenate(
-        [qp.l.reshape(W, Rp, B), qp.u.reshape(W, Rp, B)], axis=1
-    )
-
-
-def state_rows(qp):
-    """(SR, SRp): stacked per-waypoint state rows [x (2N); z (Rp); y (Rp)]."""
-    SR = 2 * qp.n_dim + 2 * qp.rows_per_waypoint_padded
-    return SR, _pad8(SR)
-
-
-def dxdy_rows(qp):
-    DR = 2 * qp.n_dim + qp.rows_per_waypoint_padded
-    return DR, _pad8(DR)
-
-
-def pack_state(qp, x, z, y):
-    """x (n, B) flat, z/y (m, B) waypoint-major → stacked (W, SRp, B)."""
-    W, N = qp.waypoints, qp.n_dim
-    Rp = qp.rows_per_waypoint_padded
-    B = x.shape[-1]
-    SR, SRp = state_rows(qp)
-    xi = qp._interleave(x)  # (W, 2N, B)
-    parts = [xi, z.reshape(W, Rp, B), y.reshape(W, Rp, B)]
-    if SRp > SR:
-        parts.append(jnp.zeros((W, SRp - SR, B), x.dtype))
-    return jnp.concatenate(parts, axis=1)
-
-
-def unpack_state(qp, st):
-    W, N = qp.waypoints, qp.n_dim
-    Rp = qp.rows_per_waypoint_padded
-    B = st.shape[-1]
-    x = qp._deinterleave(st[:, : 2 * N])
-    z = st[:, 2 * N : 2 * N + Rp].reshape(W * Rp, B)
-    y = st[:, 2 * N + Rp : 2 * N + 2 * Rp].reshape(W * Rp, B)
-    return x, z, y
-
-
-def pack_dxdy(qp, dx, dy):
-    W, N = qp.waypoints, qp.n_dim
-    Rp = qp.rows_per_waypoint_padded
-    B = dx.shape[-1]
-    DR, DRp = dxdy_rows(qp)
-    parts = [qp._interleave(dx), dy.reshape(W, Rp, B)]
-    if DRp > DR:
-        parts.append(jnp.zeros((W, DRp - DR, B), dx.dtype))
-    return jnp.concatenate(parts, axis=1)
-
-
-def unpack_dxdy(qp, d):
-    W, N = qp.waypoints, qp.n_dim
-    Rp = qp.rows_per_waypoint_padded
-    B = d.shape[-1]
-    dx = qp._deinterleave(d[:, : 2 * N])
-    dy = d[:, 2 * N : 2 * N + Rp].reshape(W * Rp, B)
-    return dx, dy
-
-
-
-# ---------------------------------------------------------------------------
-# Packed triangular factor
-# ---------------------------------------------------------------------------
-#
-# ``chol`` is lower-triangular and — for the trajectory QP family — ``gain``
-# is EXACTLY upper-triangular: the lower coupling block L couples q_{t+1}
-# only to (q_t, v_t) on shifted identities and v_{t+1} only to v_t, so L is
-# block-upper-triangular within the (2N, 2N) tile, and G = L·C⁻ᵀ (product of
-# two upper triangles) stays upper-triangular in exact arithmetic.  Packing
-# both to their 2N(2N+1)/2 nonzero entries cuts the factor's HBM traffic to
-# 54% and halves the G matvec multiplies.  Pinned by
-# tests/test_admm_fused.py::test_gain_is_upper_triangular.
-
-
-def _tri_maps(B2):
-    low = {}
-    k = 0
-    for i in range(B2):
-        for j in range(i + 1):
-            low[(i, j)] = k
-            k += 1
-    up = {}
-    k = 0
-    for i in range(B2):
-        for j in range(i, B2):
-            up[(i, j)] = k
-            k += 1
-    return low, up, _pad8(len(low))
-
-
-def pack_factor(qp, factor):
-    """LaneFactor (full blocks) → (cholp (W, Tp, B), gainp (W, Tp, B))."""
-    W, N = qp.waypoints, qp.n_dim
-    B2 = 2 * N
-    B = factor.chol.shape[-1]
-    dt = factor.chol.dtype
-    low, up, Tp = _tri_maps(B2)
-    low_flat = [i * B2 + j for (i, j) in sorted(low, key=low.get)]
-    up_flat = [i * B2 + j for (i, j) in sorted(up, key=up.get)]
-    cholp = factor.chol.reshape(W, B2 * B2, B)[:, jnp.asarray(low_flat)]
-    gain = jnp.concatenate(
-        [factor.gain, jnp.zeros((1,) + factor.gain.shape[1:], dt)], axis=0
-    )
-    gainp = gain.reshape(W, B2 * B2, B)[:, jnp.asarray(up_flat)]
-    pad = Tp - len(low_flat)
-    if pad:
-        z = jnp.zeros((W, pad, B), dt)
-        cholp = jnp.concatenate([cholp, z], axis=1)
-        gainp = jnp.concatenate([gainp, z], axis=1)
-    return cholp, gainp
-
-
 # ---------------------------------------------------------------------------
 # Kernel
 # ---------------------------------------------------------------------------
 
 
-def _make_kernel(*, W, N, Rp, CRp, SRp, DRp, S, n_iter, sigma, alpha,
-                 row_off, coef_off, ball_rows, ball_coefs, n_obstacles,
-                 emit_term=False, VCp=None, PNp=None, hrec=False):
-    """Chunk kernel factory.
-
-    ``emit_term=True`` additionally computes EVERY OSQP termination /
-    certificate reduction (the :class:`~osqp_solver_tpu.ops.admm_lane.
-    TermQuantities` accumulators, same semantics as
-    :mod:`ops.residuals_pallas`) **inside the final iteration's backward
-    pass**, so no separate streaming termination pass is needed.  The
-    variable-space quantities (Aᵀy, Px, Aᵀdy, Pdx at waypoint u) touch rows
-    of waypoint u−1, which the descending backward pass has not produced
-    yet when it visits u — they are accumulated as one-step-delayed
-    partials: own-row terms at step u, the c1/a0/P-lower cross terms at
-    step u−1, reduction at u−1 (u=0 finalized in an epilogue).  Requires
-    the vel-diag P structure (the GOMP objective).
-
-    ``hrec=True`` (``Settings.factor_form="hrec"``): gain-free
-    substitutions.  The gain stream (Tp rows in each pass) is replaced by
-    the identity ``G_t·v = Ml_t·(C_tᵀ⁻¹v)`` — ``Ml_t`` is the trajectory
-    QP's *sparse* KKT coupling block (3N nonzeros: ``rd·c1·c2`` q→q,
-    ``rd·c1·c0`` q→v, ``ra·a0·a1 + Pl`` v→v), rebuilt in-registers from the
-    already-streamed stencil coefficients.  The forward pass stores
-    ``h_t = C_tᵀ⁻¹w_t`` (same 2N rows the w scratch held); the backward
-    pass computes ``x̃_t = h_t − C_tᵀ⁻¹C_t⁻¹(Ml_tᵀ x̃_{t+1})``.
-    Algebraically identical to the gain form; needs vel-diag P (for the
-    P-lower term of Ml).  The P-lower pack streams in both passes
-    (PNp ≪ Tp rows)."""
+def _make_kernel(*, W, N, R, Rp, CRp, sigma, alpha, row_off, coef_off,
+                 ball_rows, ball_coefs, n_obstacles, block_b):
+    """Kernel body.  Each waypoint step issues all of its loads first, then
+    the arithmetic, then its stores: no store or branch sits between two
+    loads, so the loads of a step are in flight together (one warp per
+    program leaves nothing else to hide their latency).  The iteration
+    count is a runtime input, so a warmup chunk and the cadence chunk share
+    one compiled kernel."""
     B2 = 2 * N
-    X0, Z0, Y0 = 0, B2, B2 + Rp  # row offsets inside the state tile
-    LOW, UP, _ = _tri_maps(B2)
-    from .residuals_pallas import _ACC, _NACC
+    WN = W * N
+    dyn = [row_off["dyn"] + j for j in range(N)]
+    acc = [row_off["acc"] + j for j in range(N)]
+    near = ("c0", "c1", "c2", "a0", "a1")  # coefficients of Ml and t−1 terms
 
-    ACC_KEYS = sorted(_ACC, key=_ACC.get)
-    from .admm import INF_THRESHOLD
+    def kernel(n_iter_ref, chol, plow, coef, q, rho, lo, up, done,
+               _x_in, _z_in, _y_in, x, z, y, dx, dy, h):
+        cols = pl.ds(pl.program_id(0) * block_b, block_b)
+        frozen = done[0, cols] > 0.5
+        n_iter = n_iter_ref[0]
+        zero = tuple(jnp.zeros((block_b,), x.dtype) for _ in range(B2))
 
-    def kernel(*refs):
-        refs = list(refs)
+        def ld(ref, row):
+            return ref[row, cols]
 
-        def pop():
-            return refs.pop(0)
+        def put(ref, row, val, mask=None):
+            row = jnp.asarray(row, jnp.int32)  # one index dtype under x64
+            if mask is None:
+                ref[row, cols] = val
+            else:
+                pl_triton.store(ref.at[row, cols], val, mask=mask)
 
-        # ---- inputs (order mirrors fused_admm_chunk's `inputs` list) ----
-        chol_hbm = pop()
-        gain_hbm = None if hrec else pop()
-        coef_hbm, q_hbm, lu_hbm, rho_hbm = pop(), pop(), pop(), pop()
-        plf_hbm = pop() if hrec else None
-        if emit_term:
-            ee_hbm, varc_hbm, pd_hbm = pop(), pop(), pop()
-            if not hrec:
-                plf_hbm = pop()
-        done_vmem, state_in = pop(), pop()
-        # ---- outputs ----
-        state_hbm, dxdy_hbm, w_hbm = pop(), pop(), pop()
-        acc_vmem = pop() if emit_term else None
-        # ---- scratch ----
-        cbuf = pop()
-        gbuf = None if hrec else pop()
-        fbuf, qbuf, lubuf, rbuf = pop(), pop(), pop(), pop()
-        sbuf, dbuf, obuf, wbuf, wrbuf = pop(), pop(), pop(), pop(), pop()
-        plbuf = pop() if hrec else None
-        if emit_term:
-            eebuf, vcbuf, pdbuf = pop(), pop(), pop()
-            if not hrec:
-                plbuf = pop()
-        # ---- semaphores (same order as the buffers they pair with) ----
-        csem = pop()
-        gsem = None if hrec else pop()
-        fsem, qsem, lusem, rsem = pop(), pop(), pop(), pop()
-        ssem, dsem, osem, wsem, wrsem = pop(), pop(), pop(), pop(), pop()
-        plsem = pop() if hrec else None
-        if emit_term:
-            eesem, vcsem, pdsem = pop(), pop(), pop()
-            if not hrec:
-                plsem = pop()
-        assert not refs, len(refs)
+        # Flat lane layouts: x = [q (W·N); v (W·N)]; z/y/ρ/l/u waypoint-major
+        # (Rp rows per waypoint); factor blocks row-major (2N·2N per
+        # waypoint); coefficients CRp rows per waypoint.
+        def xrow(t, i):
+            return t * N + i if i < N else WN + t * N + (i - N)
 
-        del state_in  # same memory as state_hbm; use that ref
-        sub0 = pl.program_id(0) * S
-        # Compute dtype comes from the STATE stream: the factor stream may
-        # be stored at 2 bytes (Settings.factor_warmup_stream) and is
-        # upcast in-register on read.
-        cdt = sbuf.dtype
-        zero = jnp.zeros((S, LANE), cdt)
-        keep = done_vmem[:]  # (S, LANE); 1.0 = frozen problem
-        live = 1.0 - keep
+        def load_coef(t, names=None):
+            if names is None:
+                return [ld(coef, t * CRp + k) for k in range(CRp)]
+            return {
+                nm: [ld(coef, t * CRp + coef_off[nm] + j) for j in range(N)]
+                for nm in names
+            }
 
-        def sel(new, old):
-            return keep * old + live * new
+        def load_chol(t):
+            base = t * (B2 * B2)
+            return {
+                (i, j): ld(chol, base + i * B2 + j)
+                for i in range(B2) for j in range(i + 1)
+            }
 
-        def dma(hbm, buf, sem, slot, t):
-            # (t, :, ..., [sub0:sub0+S], :) — mid dims full, batch tile last.
-            idx = (t,) + (slice(None),) * (len(hbm.shape) - 3) + (
-                pl.ds(sub0, S), slice(None),
-            )
-            return pltpu.make_async_copy(
-                hbm.at[idx], buf.at[slot], sem.at[slot]
-            )
+        def load_pvel(t):
+            base = t * (B2 * B2)
+            return [ld(plow, base + (N + j) * B2 + N + j) for j in range(N)]
 
-        def wdma(buf, hbm, sem, slot, t):
-            idx = (t,) + (slice(None),) * (len(hbm.shape) - 3) + (
-                pl.ds(sub0, S), slice(None),
-            )
-            return pltpu.make_async_copy(
-                buf.at[slot], hbm.at[idx], sem.at[slot]
-            )
-
-        # fwd needs G_{t-1}; the gain stream is fetched UNSHIFTED and read
-        # from the previous step's slot (see fwd_body).
-        ident = lambda t: t  # noqa: E731
-        fwd_streams = (
-            (chol_hbm, cbuf, csem, ident),
-        ) + (
-            ((plf_hbm, plbuf, plsem, ident),) if hrec
-            else ((gain_hbm, gbuf, gsem, lambda t: jnp.maximum(t - 1, 0)),)
-        ) + (
-            (coef_hbm, fbuf, fsem, ident),
-            (q_hbm, qbuf, qsem, ident),
-            (rho_hbm, rbuf, rsem, ident),
-            (state_hbm, sbuf, ssem, ident),
-        )
-        bwd_streams = (
-            (chol_hbm, cbuf, csem, ident),
-        ) + (
-            ((plf_hbm, plbuf, plsem, ident),) if hrec
-            else ((gain_hbm, gbuf, gsem, ident),)
-        ) + (
-            (coef_hbm, fbuf, fsem, ident),
-            (lu_hbm, lubuf, lusem, ident),
-            (rho_hbm, rbuf, rsem, ident),
-            (state_hbm, sbuf, ssem, ident),
-            (w_hbm, wrbuf, wrsem, ident),
-        )
-
-        def ml_at(s):
-            """Sparse coupling block Ml_t of the waypoint in slot ``s``
-            (3 diagonals of N values; Ml is the KKT block coupling
-            waypoint t's variables to t+1's — same formulas as the factor
-            kernel's M_lower)."""
-            qq, qv, vv = [], [], []
-            for j in range(N):
-                rd = rbuf[s, row_off["dyn"] + j]
-                c0 = fbuf[s, coef_off["c0"] + j]
-                c1 = fbuf[s, coef_off["c1"] + j]
-                c2 = fbuf[s, coef_off["c2"] + j]
-                qq.append(rd * c1 * c2)
-                qv.append(rd * c1 * c0)
-                vv.append(
-                    rbuf[s, row_off["acc"] + j]
-                    * fbuf[s, coef_off["a0"] + j]
-                    * fbuf[s, coef_off["a1"] + j]
-                    + plbuf[s, j]
-                )
-            return tuple(qq), tuple(qv), tuple(vv)
-
-        def start(streams, slot, t):
-            for hbm, buf, sem, idx in streams:
-                dma(hbm, buf, sem, slot, idx(t)).start()
-
-        def wait(streams, slot, t):
-            for hbm, buf, sem, idx in streams:
-                dma(hbm, buf, sem, slot, idx(t)).wait()
-
-        def chol_at(slot, idx):
-            # f32 no-op; 2-byte factor streams upcast in-register here.
-            return cbuf[slot, idx].astype(cdt)
-
-        def lower_solve(slot, b):
+        def lower_solve(L, b):  # C w = b
             w = []
             for i in range(B2):
-                acc = b[i]
+                a_ = b[i]
                 for j in range(i):
-                    acc = acc - chol_at(slot, LOW[(i, j)]) * w[j]
-                w.append(acc / chol_at(slot, LOW[(i, i)]))
+                    a_ = a_ - L[(i, j)] * w[j]
+                w.append(a_ / L[(i, i)])
             return w
 
-        def upper_solve(slot, b):
-            x = [None] * B2
+        def upper_solve(L, b):  # Cᵀ x = b
+            xs = [None] * B2
             for i in reversed(range(B2)):
-                acc = b[i]
+                a_ = b[i]
                 for j in range(i + 1, B2):
-                    acc = acc - chol_at(slot, LOW[(j, i)]) * x[j]
-                x[i] = acc / chol_at(slot, LOW[(i, i)])
-            return x
+                    a_ = a_ - L[(j, i)] * xs[j]
+                xs[i] = a_ / L[(i, i)]
+            return xs
 
-        def a_rows_stencil(s, val, nxt):
-            """A rows at the waypoint in coef slot ``s`` from variable
-            accessors ``val(i)`` (this waypoint) / ``nxt(i)`` (next)."""
-            zt = [None] * Rp
+        def coupling(c, rd, ra, pv):
+            """Ml (waypoint t+1 rows, t columns): the q→q, v→q and v→v
+            diagonals from ρ of the dyn/acc rows, the stencil coefficients
+            and the P_lower velocity diagonal."""
+            qq = [rd[j] * c["c1"][j] * c["c2"][j] for j in range(N)]
+            qv = [rd[j] * c["c1"][j] * c["c0"][j] for j in range(N)]
+            vv = [ra[j] * c["a0"][j] * c["a1"][j] + pv[j] for j in range(N)]
+            return qq, qv, vv
+
+        def named(cf):
+            return {nm: [cf[coef_off[nm] + j] for j in range(N)] for nm in near}
+
+        def a_rows(cf, cur, nxt):
+            """A rows of one waypoint from x̃_t (``cur``) and x̃_{t+1}
+            (``nxt``); ``None`` for padding rows."""
+            out = [None] * Rp
             for j in range(N):
-                zt[row_off["dyn"] + j] = (
-                    fbuf[s, coef_off["c0"] + j] * val(N + j)
-                    + fbuf[s, coef_off["c1"] + j] * nxt(j)
-                    + fbuf[s, coef_off["c2"] + j] * val(j)
+                out[row_off["dyn"] + j] = (
+                    cf[coef_off["c0"] + j] * cur[N + j]
+                    + cf[coef_off["c1"] + j] * nxt[j]
+                    + cf[coef_off["c2"] + j] * cur[j]
                 )
-                zt[row_off["pos"] + j] = fbuf[s, coef_off["pos"] + j] * val(j)
-                zt[row_off["vel"] + j] = (
-                    fbuf[s, coef_off["vel"] + j] * val(N + j)
+                out[row_off["pos"] + j] = cf[coef_off["pos"] + j] * cur[j]
+                out[row_off["vel"] + j] = cf[coef_off["vel"] + j] * cur[N + j]
+                out[row_off["acc"] + j] = (
+                    cf[coef_off["a0"] + j] * nxt[N + j]
+                    + cf[coef_off["a1"] + j] * cur[N + j]
                 )
-                zt[row_off["acc"] + j] = (
-                    fbuf[s, coef_off["a0"] + j] * nxt(N + j)
-                    + fbuf[s, coef_off["a1"] + j] * val(N + j)
-                )
-            for b in range(len(ball_rows)):
-                ws_r, obs_r = ball_rows[b]
-                ws_c, obs_c = ball_coefs[b]
+            for (ws_r, obs_r), (ws_c, obs_c) in zip(ball_rows, ball_coefs):
+                groups = []
                 if ws_r is not None:
-                    for a3 in range(3):
-                        acc = zero
-                        for j in range(N):
-                            acc = acc + fbuf[s, ws_c + a3 * N + j] * val(j)
-                        zt[ws_r + a3] = acc
+                    groups += [(ws_r + a3, ws_c + a3 * N) for a3 in range(3)]
                 if obs_r is not None:
-                    for o in range(n_obstacles):
-                        acc = zero
-                        for j in range(N):
-                            acc = acc + fbuf[s, obs_c + o * N + j] * val(j)
-                        zt[obs_r + o] = acc
-            return zt
+                    groups += [(obs_r + o, obs_c + o * N) for o in range(n_obstacles)]
+                for r, c0 in groups:
+                    a_ = cf[c0] * cur[0]
+                    for j in range(1, N):
+                        a_ = a_ + cf[c0 + j] * cur[j]
+                    out[r] = a_
+            return out
 
-        def at_own(s, row):
-            """Own-row Aᵀ gather terms at the waypoint in slot ``s``:
-            contributions of THIS waypoint's constraint rows to its own
-            variables (c2/pos/ws/obs into q, c0/vel/a1 into v)."""
-            out = [zero] * B2
+        def at_own(cf, v):
+            """Aᵀ gather of waypoint t's own rows ``v`` into its variables."""
+            g = [None] * B2
             for j in range(N):
-                g = fbuf[s, coef_off["c2"] + j] * row(row_off["dyn"] + j)
-                g = g + fbuf[s, coef_off["pos"] + j] * row(row_off["pos"] + j)
-                for b in range(len(ball_rows)):
-                    ws_r, obs_r = ball_rows[b]
-                    ws_c, obs_c = ball_coefs[b]
+                a_ = cf[coef_off["c2"] + j] * v[row_off["dyn"] + j]
+                a_ = a_ + cf[coef_off["pos"] + j] * v[row_off["pos"] + j]
+                for (ws_r, obs_r), (ws_c, obs_c) in zip(ball_rows, ball_coefs):
                     if ws_r is not None:
                         for a3 in range(3):
-                            g = g + fbuf[s, ws_c + a3 * N + j] * row(ws_r + a3)
+                            a_ = a_ + cf[ws_c + a3 * N + j] * v[ws_r + a3]
                     if obs_r is not None:
                         for o in range(n_obstacles):
-                            g = g + fbuf[s, obs_c + o * N + j] * row(obs_r + o)
-                out[j] = g
-                gv = fbuf[s, coef_off["c0"] + j] * row(row_off["dyn"] + j)
-                gv = gv + fbuf[s, coef_off["vel"] + j] * row(row_off["vel"] + j)
-                gv = gv + fbuf[s, coef_off["a1"] + j] * row(row_off["acc"] + j)
-                out[N + j] = gv
-            return out
+                            a_ = a_ + cf[obs_c + o * N + j] * v[obs_r + o]
+                g[j] = a_
+                b_ = cf[coef_off["c0"] + j] * v[row_off["dyn"] + j]
+                b_ = b_ + cf[coef_off["vel"] + j] * v[row_off["vel"] + j]
+                b_ = b_ + cf[coef_off["a1"] + j] * v[row_off["acc"] + j]
+                g[N + j] = b_
+            return g
 
-        def at_prev(s, row):
-            """Cross terms: contributions of the slot-``s`` waypoint's rows
-            to the NEXT waypoint's variables (c1 into q, a0 into v)."""
-            out = [zero] * B2
+        def fwd_step(t, h_prev):
+            tp = jnp.maximum(t - 1, 0)
+            # ---- loads ----
+            cf = load_coef(t)
+            rho_t = [ld(rho, t * Rp + r) for r in range(R)]
+            z_t = [ld(z, t * Rp + r) for r in range(R)]
+            y_t = [ld(y, t * Rp + r) for r in range(R)]
+            prev_rows = dyn + acc
+            rho_p = {r: ld(rho, tp * Rp + r) for r in prev_rows}
+            z_p = {r: ld(z, tp * Rp + r) for r in prev_rows}
+            y_p = {r: ld(y, tp * Rp + r) for r in prev_rows}
+            cf_p = load_coef(tp, near)
+            pv_p = load_pvel(tp)
+            x_t = [ld(x, xrow(t, i)) for i in range(B2)]
+            q_t = [ld(q, xrow(t, i)) for i in range(B2)]
+            L = load_chol(t)
+            # ---- arithmetic ----
+            v = [rho_t[r] * z_t[r] - y_t[r] for r in range(R)]
+            v = v + [None] * (Rp - R)
+            g = at_own(cf, v)
+            has_prev = t > 0
             for j in range(N):
-                out[j] = fbuf[s, coef_off["c1"] + j] * row(row_off["dyn"] + j)
-                out[N + j] = (
-                    fbuf[s, coef_off["a0"] + j] * row(row_off["acc"] + j)
+                r1, r2 = dyn[j], acc[j]
+                vd = rho_p[r1] * z_p[r1] - y_p[r1]
+                va = rho_p[r2] * z_p[r2] - y_p[r2]
+                g[j] = g[j] + jnp.where(has_prev, cf_p["c1"][j] * vd, 0.0)
+                g[N + j] = g[N + j] + jnp.where(
+                    has_prev, cf_p["a0"][j] * va, 0.0
                 )
-            return out
-
-        def fwd_pass():
-            # ===== forward: RHS build + forward substitution ===============
-            start(fwd_streams, 0, 0)
-
-            def fwd_body(t, carry):
-                # Non-hrec: ``w_prev`` is w_{t-1}; hrec: it is
-                # h_{t-1} = C_{t-1}ᵀ⁻¹w_{t-1} and ``ml_p`` is Ml_{t-1}.
-                if hrec:
-                    w_prev, vdyn_p, vacc_p, c1_p, a0_p, ml_p = carry
-                else:
-                    w_prev, vdyn_p, vacc_p, c1_p, a0_p = carry
-                s = t % 2
-
-                @pl.when(t + 1 < W)
-                def _():
-                    start(fwd_streams, (t + 1) % 2, t + 1)
-
-                wait(fwd_streams, s, t)
-
-                def vrow(r):
-                    return rbuf[s, r] * sbuf[s, Z0 + r] - sbuf[s, Y0 + r]
-
-                vdyn = [vrow(row_off["dyn"] + j) for j in range(N)]
-                vacc = [vrow(row_off["acc"] + j) for j in range(N)]
-
-                rhs = []
-                for j in range(N):  # q rows of the Aᵀ gather
-                    g = fbuf[s, coef_off["c2"] + j] * vdyn[j]
-                    g = g + c1_p[j] * vdyn_p[j]
-                    g = g + fbuf[s, coef_off["pos"] + j] * vrow(
-                        row_off["pos"] + j
-                    )
-                    for b in range(len(ball_rows)):
-                        ws_r, obs_r = ball_rows[b]
-                        ws_c, obs_c = ball_coefs[b]
-                        if ws_r is not None:
-                            for a3 in range(3):
-                                g = g + fbuf[s, ws_c + a3 * N + j] * vrow(
-                                    ws_r + a3
-                                )
-                        if obs_r is not None:
-                            for o in range(n_obstacles):
-                                g = g + fbuf[s, obs_c + o * N + j] * vrow(
-                                    obs_r + o
-                                )
-                    rhs.append(sigma * sbuf[s, X0 + j] - qbuf[s, j] + g)
-                for j in range(N):  # v rows
-                    g = fbuf[s, coef_off["c0"] + j] * vdyn[j]
-                    g = g + fbuf[s, coef_off["vel"] + j] * vrow(
-                        row_off["vel"] + j
-                    )
-                    g = g + fbuf[s, coef_off["a1"] + j] * vacc[j]
-                    g = g + a0_p[j] * vacc_p[j]
-                    rhs.append(sigma * sbuf[s, X0 + N + j] - qbuf[s, N + j] + g)
-
-                # w_t = C_t⁻¹ (rhs_t − G_{t-1} w_{t-1}); G upper-triangular.
-                # hrec: G_{t-1}w_{t-1} = Ml_{t-1}·h_{t-1}, Ml sparse.
-                if hrec:
-                    qq_p, qv_p, vv_p = ml_p
-                    glw = [None] * B2
-                    for j in range(N):
-                        glw[j] = qq_p[j] * w_prev[j] + qv_p[j] * w_prev[N + j]
-                        glw[N + j] = vv_p[j] * w_prev[N + j]
-                else:
-                    glw = []
-                    for i in range(B2):
-                        acc = zero
-                        for j in range(i, B2):
-                            acc = acc + gbuf[s, UP[(i, j)]] * w_prev[j]
-                        glw.append(acc)
-                b_rows = [
-                    jnp.where(t > 0, rhs[i] - glw[i], rhs[i])
-                    for i in range(B2)
-                ]
-                w = lower_solve(s, b_rows)
-                if hrec:
-                    w = upper_solve(s, w)  # h_t = C_tᵀ⁻¹ w_t
-                for i in range(B2):
-                    wbuf[s, i] = w[i]
-                ww = wdma(wbuf, w_hbm, wsem, s, t)
-                ww.start()
-                ww.wait()
-
-                c1_n = tuple(fbuf[s, coef_off["c1"] + j] for j in range(N))
-                a0_n = tuple(fbuf[s, coef_off["a0"] + j] for j in range(N))
-                out = (tuple(w), tuple(vdyn), tuple(vacc), c1_n, a0_n)
-                if hrec:
-                    out = out + (ml_at(s),)
-                return out
-
-            zN = tuple(zero for _ in range(N))
-            carry0 = (tuple(zero for _ in range(B2)), zN, zN, zN, zN)
-            if hrec:
-                carry0 = carry0 + ((zN, zN, zN),)
-            jax.lax.fori_loop(0, W, fwd_body, carry0)
-
-        ninf = jnp.full((S, LANE), -jnp.inf, cdt)
-        pinf = jnp.full((S, LANE), jnp.inf, cdt)
-        VQ, VD, VDI = 0, B2, 2 * B2  # varc row offsets (as residuals kernel)
-
-        if emit_term:
-            term_streams = (
-                (ee_hbm, eebuf, eesem, 2),
-                (varc_hbm, vcbuf, vcsem, 3),
-                (pd_hbm, pdbuf, pdsem, 2),
+            b = [sigma * x_t[i] - q_t[i] + g[i] for i in range(B2)]
+            # r_t − Ml_{t−1}·h_{t−1}; h_prev is zero at t = 0.
+            qq, qv, vv = coupling(
+                cf_p, [rho_p[r] for r in dyn], [rho_p[r] for r in acc], pv_p
             )
-            if not hrec:  # hrec streams plf in every bwd pass already
-                term_streams = term_streams + ((plf_hbm, plbuf, plsem, 2),)
+            for j in range(N):
+                b[j] = b[j] - (qq[j] * h_prev[j] + qv[j] * h_prev[N + j])
+                b[N + j] = b[N + j] - vv[j] * h_prev[N + j]
+            ht = upper_solve(L, lower_solve(L, b))
+            # ---- stores ----
+            for i in range(B2):
+                put(h, t * B2 + i, ht[i])
+            return tuple(ht)
 
-        def reduce_var_space(s3x, aty_f, atdy_f, px_f, pdx_f):
-            """max-reduce the variable-space quantities of one waypoint
-            using the varc rows in slot ``s3x``; returns the 5 tiles."""
-            draw_c, ndpx_c, ndaty_c, atdy_c, npdx_c = (
-                zero, zero, zero, zero, zero
+        def bwd_step(k, xn, final):
+            t = W - 1 - k
+            # ---- loads ----
+            h_t = [ld(h, t * B2 + i) for i in range(B2)]
+            L = load_chol(t)
+            cf = load_coef(t)
+            # x̃_W is zero, so the P_lower row read at t = W−1 (clamped to
+            # W−2) never contributes.
+            pv = load_pvel(jnp.minimum(t, W - 2))
+            x_old = [ld(x, xrow(t, i)) for i in range(B2)]
+            rows = [t * Rp + r for r in range(Rp)]
+            rho_t = [ld(rho, rr) for rr in rows]
+            z_old = [ld(z, rr) for rr in rows]
+            y_old = [ld(y, rr) for rr in rows]
+            lo_t = [ld(lo, rr) for rr in rows]
+            up_t = [ld(up, rr) for rr in rows]
+            # ---- arithmetic ----
+            # Ml_tᵀ·x̃_{t+1}; at t = W−1 its stencil coefficients are zero.
+            qq, qv, vv = coupling(
+                named(cf), [rho_t[r] for r in dyn], [rho_t[r] for r in acc], pv
             )
-            for idx in range(B2):
-                Dinv_i = vcbuf[s3x, VDI + idx]
-                q_i = vcbuf[s3x, VQ + idx]
-                Px_i = zero if idx < N else px_f[idx - N]
-                Pdx_i = zero if idx < N else pdx_f[idx - N]
-                draw_c = jnp.maximum(
-                    draw_c, jnp.abs(Dinv_i * (Px_i + q_i + aty_f[idx]))
-                )
-                ndpx_c = jnp.maximum(ndpx_c, jnp.abs(Dinv_i * Px_i))
-                ndaty_c = jnp.maximum(ndaty_c, jnp.abs(Dinv_i * aty_f[idx]))
-                atdy_c = jnp.maximum(atdy_c, jnp.abs(Dinv_i * atdy_f[idx]))
-                npdx_c = jnp.maximum(npdx_c, jnp.abs(Dinv_i * Pdx_i))
-            return draw_c, ndpx_c, ndaty_c, atdy_c, npdx_c
+            u = [None] * B2
+            for j in range(N):
+                u[j] = qq[j] * xn[j]
+                u[N + j] = qv[j] * xn[j] + vv[j] * xn[N + j]
+            r_ = upper_solve(L, lower_solve(L, u))
+            xt = [h_t[i] - r_[i] for i in range(B2)]
+            x_new = [alpha * xt[i] + (1.0 - alpha) * x_old[i] for i in range(B2)]
+            zt = a_rows(cf, xt, xn)
+            z_new, y_new = [], []
+            for r in range(Rp):
+                z_a = alpha * zt[r] if zt[r] is not None else 0.0
+                z_tmp = z_a + (1.0 - alpha) * z_old[r]
+                zn = jnp.clip(z_tmp + y_old[r] / rho_t[r], lo_t[r], up_t[r])
+                z_new.append(zn)
+                y_new.append(y_old[r] + rho_t[r] * (z_tmp - zn))
+            # ---- stores ----
+            last = jnp.broadcast_to(final, (block_b,))
+            for i in range(B2):
+                row = xrow(t, i)
+                put(x, row, jnp.where(frozen, x_old[i], x_new[i]))
+                put(dx, row, jnp.where(frozen, 0.0, x_new[i] - x_old[i]), last)
+            for r in range(Rp):
+                put(z, rows[r], jnp.where(frozen, z_old[r], z_new[r]))
+                put(y, rows[r], jnp.where(frozen, y_old[r], y_new[r]))
+                put(dy, rows[r], jnp.where(frozen, 0.0, y_new[r] - y_old[r]), last)
+            return tuple(xt)
 
-        def bwd_pass(final):
-            # ===== backward: solve + project + dual update =================
-            start(bwd_streams, (W - 1) % 2, W - 1)
-            if final and emit_term:
-                for hbm, buf, sem, ns in term_streams:
-                    dma(hbm, buf, sem, (W - 1) % ns, W - 1).start()
-
-            zB2 = tuple(zero for _ in range(B2))
-            zNt = tuple(zero for _ in range(N))
-            if final and emit_term:
-                acc0 = []
-                for k in ACC_KEYS:
-                    if k == "Adx_max":
-                        acc0.append(ninf)
-                    elif k == "Adx_min":
-                        acc0.append(pinf)
-                    else:
-                        acc0.append(zero)
-                carry0 = (zB2, zB2, zB2, zB2, zB2, zB2, zNt, zNt, tuple(acc0))
-            else:
-                carry0 = zB2
-
-            def bwd_body(i, carry):
-                if final and emit_term:
-                    (xt_next, xsel_next, xold_next, dx_next,
-                     aty_p, atdy_p, px_p, pdx_p, accs) = carry
-                    acc = dict(zip(ACC_KEYS, accs))
-                else:
-                    xt_next = carry
-                t = W - 1 - i
-                s = t % 2
-
-                @pl.when(t > 0)
-                def _():
-                    start(bwd_streams, (t - 1) % 2, t - 1)
-                    if final and emit_term:
-                        for hbm, buf, sem, ns in term_streams:
-                            dma(hbm, buf, sem, (t - 1) % ns, t - 1).start()
-
-                wait(bwd_streams, s, t)
-                if final and emit_term:
-                    for hbm, buf, sem, ns in term_streams:
-                        dma(hbm, buf, sem, t % ns, t).wait()
-                s3 = t % 3  # varc slot for waypoint t
-                s3n = (t + 1) % 3  # varc slot for waypoint t+1 (still live)
-
-                # x̃_t = C_t⁻ᵀ (w_t − G_tᵀ x̃_{t+1}); (Gᵀx)_i = Σ_{j≤i} G[j,i]·x_j.
-                # hrec: wrbuf holds h_t = C_tᵀ⁻¹w_t and
-                # x̃_t = h_t − C_tᵀ⁻¹C_t⁻¹(Ml_tᵀ x̃_{t+1}).
-                if hrec:
-                    qq_t, qv_t, vv_t = ml_at(s)
-                    u = [None] * B2
-                    for j in range(N):
-                        u[j] = qq_t[j] * xt_next[j]
-                        u[N + j] = (
-                            qv_t[j] * xt_next[j] + vv_t[j] * xt_next[N + j]
-                        )
-                    r = upper_solve(s, lower_solve(s, u))
-                    xt = [
-                        jnp.where(t < W - 1, wrbuf[s, ii] - r[ii], wrbuf[s, ii])
-                        for ii in range(B2)
-                    ]
-                else:
-                    b_rows = []
-                    for ii in range(B2):
-                        acc2 = zero
-                        for j in range(ii + 1):
-                            acc2 = acc2 + gbuf[s, UP[(j, ii)]] * xt_next[j]
-                        b_rows.append(
-                            jnp.where(
-                                t < W - 1, wrbuf[s, ii] - acc2, wrbuf[s, ii]
-                            )
-                        )
-                    xt = upper_solve(s, b_rows)
-
-                x_old = [sbuf[s, X0 + ii] for ii in range(B2)]
-                x_sel = [None] * B2
-                dx_t = [None] * B2
-                for ii in range(B2):
-                    x_new = alpha * xt[ii] + (1.0 - alpha) * x_old[ii]
-                    x_sel[ii] = sel(x_new, x_old[ii])
-                    obuf[s, X0 + ii] = x_sel[ii]
-                    dx_t[ii] = live * (x_new - x_old[ii])
-                    if final and not emit_term:
-                        dbuf[s, ii] = dx_t[ii]
-
-                # A-row apply at waypoint t (x̃_{t+1} still in registers).
-                zt = a_rows_stencil(
-                    s, lambda i2: xt[i2], lambda i2: xt_next[i2]
-                )
-
-                z_sel = [None] * Rp
-                y_sel = [None] * Rp
-                dy_t = [None] * Rp
-                for r in range(Rp):
-                    ztr = zt[r] if zt[r] is not None else zero
-                    z_old = sbuf[s, Z0 + r]
-                    y_old = sbuf[s, Y0 + r]
-                    z_tmp = alpha * ztr + (1.0 - alpha) * z_old
-                    z_new = jnp.clip(
-                        z_tmp + y_old / rbuf[s, r],
-                        lubuf[s, r], lubuf[s, Rp + r],
-                    )
-                    y_new = y_old + rbuf[s, r] * (z_tmp - z_new)
-                    z_sel[r] = sel(z_new, z_old)
-                    y_sel[r] = sel(y_new, y_old)
-                    dy_t[r] = live * (y_new - y_old)
-                    obuf[s, Z0 + r] = z_sel[r]
-                    obuf[s, Y0 + r] = y_sel[r]
-                    if final and not emit_term:
-                        dbuf[s, B2 + r] = dy_t[r]
-
-                for r in range(2 * N + 2 * Rp, SRp):
-                    obuf[s, r] = zero
-
-                wr = wdma(obuf, state_hbm, osem, s, t)
-                wr.start()
-                wr.wait()
-
-                if final and not emit_term:
-                    # emit_term consumes dx/dy in-register during the
-                    # reductions below — the packed deltas never hit HBM.
-                    for r in range(2 * N + Rp, DRp):
-                        dbuf[s, r] = zero
-                    wd = wdma(dbuf, dxdy_hbm, dsem, s, t)
-                    wd.start()
-                    wd.wait()
-
-                if not (final and emit_term):
-                    return tuple(xt)
-
-                # ===== termination reductions (final iteration only) =======
-                # Row space at waypoint t: A·x_sel from the already-computed
-                # A·x̃ (zt) plus one A-row apply on the OLD state; A·dx from
-                # the deltas.  Exactly the residuals-kernel formulas.
-                axold = a_rows_stencil(
-                    s, lambda i2: x_old[i2], lambda i2: xold_next[i2]
-                )
-                adx = a_rows_stencil(
-                    s, lambda i2: dx_t[i2], lambda i2: dx_next[i2]
-                )
-                pr_c, nax_c, nz_c, nedy_c = zero, zero, zero, zero
-                sup_c, lpos_c, lneg_c, ys_c = zero, zero, zero, zero
-                adxmx_c, adxmn_c = ninf, pinf
-                for r in range(Rp):
-                    ztr = zt[r] if zt[r] is not None else zero
-                    axo = axold[r] if axold[r] is not None else zero
-                    ax_sel = keep * axo + live * (
-                        alpha * ztr + (1.0 - alpha) * axo
-                    )
-                    Einv_r = eebuf[s, Rp + r]
-                    E_r = eebuf[s, r]
-                    pr_c = jnp.maximum(
-                        pr_c, jnp.abs(Einv_r * (ax_sel - z_sel[r]))
-                    )
-                    nax_c = jnp.maximum(nax_c, jnp.abs(Einv_r * ax_sel))
-                    nz_c = jnp.maximum(nz_c, jnp.abs(Einv_r * z_sel[r]))
-                    edy = E_r * dy_t[r]
-                    nedy_c = jnp.maximum(nedy_c, jnp.abs(edy))
-                    edy_pos = jnp.maximum(edy, 0.0)
-                    edy_neg = jnp.minimum(edy, 0.0)
-                    u_b = Einv_r * lubuf[s, Rp + r]
-                    l_b = Einv_r * lubuf[s, r]
-                    loose_u = u_b >= INF_THRESHOLD
-                    loose_l = l_b <= -INF_THRESHOLD
-                    sup_c = sup_c + jnp.where(
-                        loose_u, 0.0, u_b * edy_pos
-                    ) + jnp.where(loose_l, 0.0, l_b * edy_neg)
-                    lpos_c = jnp.maximum(
-                        lpos_c, jnp.where(loose_u, edy_pos, 0.0)
-                    )
-                    lneg_c = jnp.maximum(
-                        lneg_c, jnp.where(loose_l, -edy_neg, 0.0)
-                    )
-                    adxr = adx[r] if adx[r] is not None else zero
-                    eadx = Einv_r * adxr
-                    adxmx_c = jnp.maximum(
-                        adxmx_c, jnp.where(loose_u, ninf, eadx)
-                    )
-                    adxmn_c = jnp.minimum(
-                        adxmn_c, jnp.where(loose_l, pinf, eadx)
-                    )
-                    ys_c = ys_c + y_sel[r]
-                acc["prim_res"] = jnp.maximum(acc["prim_res"], pr_c)
-                acc["normEAx"] = jnp.maximum(acc["normEAx"], nax_c)
-                acc["normEz"] = jnp.maximum(acc["normEz"], nz_c)
-                acc["normEdy"] = jnp.maximum(acc["normEdy"], nedy_c)
-                acc["support"] = acc["support"] + sup_c
-                acc["loose_pos"] = jnp.maximum(acc["loose_pos"], lpos_c)
-                acc["loose_neg"] = jnp.maximum(acc["loose_neg"], lneg_c)
-                acc["Adx_max"] = jnp.maximum(acc["Adx_max"], adxmx_c)
-                acc["Adx_min"] = jnp.minimum(acc["Adx_min"], adxmn_c)
-                acc["ysum"] = acc["ysum"] + ys_c
-
-                # Variable space, waypoint t+1: finalize the carried partials
-                # with this waypoint's cross terms (c1/a0 rows, P-lower).
-                cross_y = at_prev(s, lambda r: y_sel[r])
-                cross_dy = at_prev(s, lambda r: dy_t[r])
-                aty_f = [aty_p[i2] + cross_y[i2] for i2 in range(B2)]
-                atdy_f = [atdy_p[i2] + cross_dy[i2] for i2 in range(B2)]
-                px_f = [
-                    px_p[j] + plbuf[s, j] * x_sel[N + j] for j in range(N)
-                ]
-                pdx_f = [
-                    pdx_p[j] + plbuf[s, j] * dx_t[N + j] for j in range(N)
-                ]
-                draw_c, ndpx_c, ndaty_c, atdy_c, npdx_c = reduce_var_space(
-                    s3n, aty_f, atdy_f, px_f, pdx_f
-                )
-                has_next = t < W - 1
-
-                def m_max(key, c):
-                    acc[key] = jnp.where(
-                        has_next, jnp.maximum(acc[key], c), acc[key]
-                    )
-
-                m_max("dual_raw", draw_c)
-                m_max("normDPx", ndpx_c)
-                m_max("normDATy", ndaty_c)
-                m_max("At_dy", atdy_c)
-                m_max("Pdx_max", npdx_c)
-
-                # Own-value variable reductions at waypoint t.
-                ndx_c, qdot_c, xs_c = zero, zero, zero
-                for idx in range(B2):
-                    ndx_c = jnp.maximum(
-                        ndx_c, jnp.abs(vcbuf[s3, VD + idx] * dx_t[idx])
-                    )
-                    qdot_c = qdot_c + vcbuf[s3, VQ + idx] * dx_t[idx]
-                    xs_c = xs_c + x_sel[idx]
-                acc["norm_dx"] = jnp.maximum(acc["norm_dx"], ndx_c)
-                acc["q_dot"] = acc["q_dot"] + qdot_c
-                acc["xsum"] = acc["xsum"] + xs_c
-
-                # Fresh partials for waypoint t (own-row terms).
-                aty_n = at_own(s, lambda r: y_sel[r])
-                atdy_n = at_own(s, lambda r: dy_t[r])
-                px_n = tuple(
-                    pdbuf[s, j] * x_sel[N + j]
-                    + plbuf[s, j] * xsel_next[N + j]
-                    for j in range(N)
-                )
-                pdx_n = tuple(
-                    pdbuf[s, j] * dx_t[N + j] + plbuf[s, j] * dx_next[N + j]
-                    for j in range(N)
-                )
-                return (
-                    tuple(xt), tuple(x_sel), tuple(x_old), tuple(dx_t),
-                    tuple(aty_n), tuple(atdy_n), px_n, pdx_n,
-                    tuple(acc[k] for k in ACC_KEYS),
-                )
-
-            out = jax.lax.fori_loop(0, W, bwd_body, carry0)
-            if not (final and emit_term):
-                return
-
-            # Epilogue: waypoint 0's variable-space quantities are complete
-            # (no u−1 cross terms); varc slot 0 is still resident.
-            (_, _, _, _, aty_p, atdy_p, px_p, pdx_p, accs) = out
-            acc = dict(zip(ACC_KEYS, accs))
-            draw_c, ndpx_c, ndaty_c, atdy_c, npdx_c = reduce_var_space(
-                0, list(aty_p), list(atdy_p), list(px_p), list(pdx_p)
+        def iteration(it, carry):
+            final = it == n_iter - 1
+            jax.lax.fori_loop(0, W, fwd_step, zero)
+            jax.lax.fori_loop(
+                0, W, lambda k, xn: bwd_step(k, xn, final), zero
             )
-            acc["dual_raw"] = jnp.maximum(acc["dual_raw"], draw_c)
-            acc["normDPx"] = jnp.maximum(acc["normDPx"], ndpx_c)
-            acc["normDATy"] = jnp.maximum(acc["normDATy"], ndaty_c)
-            acc["At_dy"] = jnp.maximum(acc["At_dy"], atdy_c)
-            acc["Pdx_max"] = jnp.maximum(acc["Pdx_max"], npdx_c)
-            for k, idx in _ACC.items():
-                acc_vmem[idx] = acc[k]
-            for idx in range(len(_ACC), _NACC):
-                acc_vmem[idx] = zero
+            return carry
 
-        def plain_iteration(it, _):
-            fwd_pass()
-            bwd_pass(final=False)
-            return 0
-
-        jax.lax.fori_loop(0, n_iter - 1, plain_iteration, 0)
-        fwd_pass()
-        bwd_pass(final=True)
+        jax.lax.fori_loop(0, n_iter, iteration, 0)
 
     return kernel
 
@@ -945,213 +402,81 @@ def _make_kernel(*, W, N, Rp, CRp, SRp, DRp, S, n_iter, sigma, alpha,
 # ---------------------------------------------------------------------------
 
 
-def _tile(a, GS):
-    """(..., B) → (..., GS, LANE)."""
-    return a.reshape(*a.shape[:-1], GS, LANE)
-
-
-def term_fused_supported(scaled, settings) -> bool:
-    """emit_term needs the vel-diag P structure on top of the chunk gates;
-    ``settings.term_fused="off"`` forces the separate termination kernel."""
-    return (
-        settings.term_fused != "off"
-        and fused_chunk_supported(scaled, settings)
-        and scaled.p_structure == "vel_diag"
-    )
-
-
 def fused_admm_chunk(
-    scaled, factor, x, z, y, rho_vec, done, settings,
-    coef=None, lu=None, packed_factor=None, interpret=None,
-    return_packed=False, state_pack=None, term_packs=None, n_iter=None,
+    scaled, factor, x, z, y, rho_vec, done, settings, n_iter=None,
+    coef=None, block_b=BLOCK_B, interpret=False,
 ):
     """Run ``n_iter`` (default ``settings.check_termination``) ADMM
-    iterations fused.
+    iterations in one launch.
 
-    ``scaled``: waypoint-layout :class:`LaneTrajectoryQP` (Ruiz-scaled);
-    ``factor``: its block-Cholesky ``LaneFactor`` (ignored when
-    ``packed_factor`` — the :func:`pack_factor` output — is given); flat
-    lane state ``x (n, B)``, ``z/y/rho_vec (m, B)``, ``done (B,) bool``.
-    Returns ``(x, z, y, dx, dy)``: the state after the chunk plus the final
-    iteration's deltas (zero for frozen problems — their certificates are
-    already decided), semantically matching ``check_termination``
-    applications of :func:`admm_lane._iteration`.
+    ``scaled``: waypoint-layout, velocity-diagonal
+    :class:`~osqp_solver_tpu.gomp.trajectory_qp_lane.LaneTrajectoryQP`
+    (Ruiz-scaled); ``factor``: its ``LaneFactor`` for ``rho_vec`` (only the
+    diagonal Cholesky blocks are read); lane state ``x (n, B)``,
+    ``z/y/rho_vec (m, B)``, ``done (B,) bool``; ``coef``: the
+    :func:`build_coef_pack` of ``scaled`` (built here when omitted).
 
-    ``state_pack``: the (W, SRp, B) packed state from a previous chunk call
-    — skips :func:`pack_state` on entry AND the flat unpack on exit
-    (``x``/``z``/``y`` may be None); returns only
-    ``(state_out, dxdy_out)``.  This is how the driver carries state across
-    chunks with zero relayouts.
-
-    ``term_packs``: ``(EEinv (W, 2Rp, B), varc, Pdp, Plf)`` (the
-    bounds-independent residual packs; vel-diag only, see
-    :func:`term_fused_supported`) — the kernel then ALSO emits the raw
-    termination accumulators during the final iteration's backward pass
-    (no separate streaming termination pass), and the return gains a
-    trailing ``acc (NACC, B)`` element.
+    Returns ``(x, z, y, dx, dy)``: the state after the chunk — the same
+    values as ``n_iter`` applications of :func:`.admm_lane._iteration` up
+    to rounding — and the final iteration's deltas, zero for frozen
+    problems (their status is already decided).  A batch that is not a
+    multiple of ``block_b`` is padded with copies of its last problem,
+    marked frozen.  ``interpret=True`` runs the kernel in the Pallas
+    interpreter (tests on the CPU).
     """
+    reason = kernel_unsupported_reason(scaled, settings)
+    if reason is not None:
+        raise ValueError(f"fused_admm_chunk: {reason}")
     W, N, B = scaled.waypoints, scaled.n_dim, scaled.batch
+    B2 = 2 * N
     Rp = scaled.rows_per_waypoint_padded
-    _, SRp = state_rows(scaled)
-    _, DRp = dxdy_rows(scaled)
     row_off, ball_rows = _row_layout(scaled)
     coef_off, ball_coefs, _, CRp = _coef_layout(scaled)
-    _, _, Tp = _tri_maps(2 * N)
     dt = scaled.q_vec.dtype
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    GS = B // LANE
-    S = min(MAX_SUBLANES, GS)
-    grid = GS // S
-
     if coef is None:
         coef = build_coef_pack(scaled)
-    if lu is None:
-        lu = build_lu_pack(scaled)
-    if packed_factor is None:
-        packed_factor = pack_factor(scaled, factor)
-    cholp, gainp = packed_factor
 
-    # Gain-free substitutions: requested via settings, or forced when the
-    # factor was produced without a gain pack.
-    hrec = (
-        settings.factor_form == "hrec"
-        and scaled.p_structure == "vel_diag"
-    ) or gainp is None
-    assert not (hrec and scaled.p_structure != "vel_diag"), (
-        "gain-free (hrec) chunk needs vel-diag P"
-    )
+    pad = -B % block_b
 
-    state = state_pack if state_pack is not None else pack_state(scaled, x, z, y)
-    q_int = scaled._interleave(scaled.q_vec)  # (W, 2N, B)
-    rho3 = rho_vec.reshape(W, Rp, B)
-    done_f = done.astype(dt).reshape(GS, LANE)
+    def lane2d(a):
+        a = a.reshape(-1, B)
+        return jnp.pad(a, ((0, 0), (0, pad)), mode="edge") if pad else a
 
-    emit_term = term_packs is not None
-    VCp = PNp = None
-    if emit_term:
-        from .residuals_pallas import _NACC
-
-        assert scaled.p_structure == "vel_diag", "emit_term needs vel_diag P"
-        ee, varc, Pdp, Plf = term_packs
-        VCp, PNp = varc.shape[1], Pdp.shape[1]
-    plf = None
-    if hrec:
-        if emit_term:
-            plf = Plf
-        else:
-            from .kkt_factor_pallas import build_p_vel_packs
-
-            plf = build_p_vel_packs(scaled)[1]
-        if PNp is None:
-            PNp = plf.shape[1]
-
+    done_f = done.astype(dt)[None, :]
+    if pad:
+        done_f = jnp.pad(done_f, ((0, 0), (0, pad)), constant_values=1.0)
+    n = scaled.n
+    m = W * Rp
+    Bp = B + pad
+    n_iter = settings.check_termination if n_iter is None else n_iter
+    inputs = [
+        jnp.asarray(n_iter, jnp.int32).reshape(1),
+        lane2d(factor.chol), lane2d(scaled.P_lower), lane2d(coef),
+        lane2d(scaled.q_vec), lane2d(rho_vec), lane2d(scaled.l),
+        lane2d(scaled.u), done_f, lane2d(x), lane2d(z), lane2d(y),
+    ]
     kernel = _make_kernel(
-        W=W, N=N, Rp=Rp, CRp=CRp, SRp=SRp, DRp=DRp, S=S,
-        n_iter=int(n_iter) if n_iter is not None else settings.check_termination,
+        W=W, N=N, R=scaled.rows_per_waypoint, Rp=Rp, CRp=CRp,
         sigma=float(settings.sigma), alpha=float(settings.alpha),
         row_off=row_off, coef_off=coef_off,
         ball_rows=ball_rows, ball_coefs=ball_coefs,
-        n_obstacles=scaled.n_obstacles,
-        emit_term=emit_term, VCp=VCp, PNp=PNp, hrec=hrec,
+        n_obstacles=scaled.n_obstacles, block_b=block_b,
     )
-
-    ANY = pl.BlockSpec(memory_space=pl.ANY)
-    inputs = [_tile(cholp, GS)]
-    if not hrec:
-        inputs.append(_tile(gainp, GS))
-    inputs += [_tile(coef, GS), _tile(q_int, GS), _tile(lu, GS), _tile(rho3, GS)]
-    if hrec:
-        inputs.append(_tile(plf, GS))
-    if emit_term:
-        inputs += [_tile(ee, GS), _tile(varc, GS), _tile(Pdp, GS)]
-        if not hrec:
-            inputs.append(_tile(Plf, GS))
-    in_specs = [ANY] * len(inputs)
-    in_specs += [
-        pl.BlockSpec(  # done mask, auto-blocked per program
-            (S, LANE), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        ANY,  # state (aliased to out 0)
-    ]
-    inputs += [done_f, _tile(state, GS)]
-    state_in_idx = len(inputs) - 1
-
-    out_specs = [
-        pl.BlockSpec(memory_space=pl.ANY),
-        pl.BlockSpec(memory_space=pl.ANY),
-        pl.BlockSpec(memory_space=pl.ANY),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((W, SRp, GS, LANE), dt),
-        # emit_term never writes the delta pack (consumed in-register).
-        jax.ShapeDtypeStruct(
-            (1, DRp, GS, LANE) if emit_term else (W, DRp, GS, LANE), dt
-        ),
-        jax.ShapeDtypeStruct((W, 2 * N, GS, LANE), dt),  # w scratch
-    ]
-    if emit_term:
-        out_specs.append(
-            pl.BlockSpec((_NACC, S, LANE), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM)
-        )
-        out_shape.append(jax.ShapeDtypeStruct((_NACC, GS, LANE), dt))
-
-    scratch = [pltpu.VMEM((2, Tp, S, LANE), cholp.dtype)]  # cbuf (packed chol)
-    if not hrec:
-        scratch.append(pltpu.VMEM((2, Tp, S, LANE), dt))  # gbuf (packed gain)
-    scratch += [
-        pltpu.VMEM((2, CRp, S, LANE), dt),  # fbuf
-        pltpu.VMEM((2, 2 * N, S, LANE), dt),  # qbuf
-        pltpu.VMEM((2, 2 * Rp, S, LANE), dt),  # lubuf
-        pltpu.VMEM((2, Rp, S, LANE), dt),  # rbuf
-        pltpu.VMEM((2, SRp, S, LANE), dt),  # sbuf
-        pltpu.VMEM((2, DRp, S, LANE), dt),  # dbuf
-        pltpu.VMEM((2, SRp, S, LANE), dt),  # obuf
-        pltpu.VMEM((2, 2 * N, S, LANE), dt),  # wbuf (fwd write)
-        pltpu.VMEM((2, 2 * N, S, LANE), dt),  # wrbuf (bwd read)
-    ]
-    if hrec:
-        scratch.append(pltpu.VMEM((2, PNp, S, LANE), dt))  # plbuf
-    if emit_term:
-        scratch += [
-            pltpu.VMEM((2, 2 * Rp, S, LANE), dt),  # eebuf (E; Einv)
-            pltpu.VMEM((3, VCp, S, LANE), dt),  # vcbuf (3-slot: t+1 live)
-            pltpu.VMEM((2, PNp, S, LANE), dt),  # pdbuf
-        ]
-        if not hrec:
-            scratch.append(pltpu.VMEM((2, PNp, S, LANE), dt))  # plbuf
-    n_sems = len(scratch)
-    scratch += [
-        pltpu.SemaphoreType.DMA((3,)) for _ in range(n_sems)
-    ]
-
+    shape = lambda rows: jax.ShapeDtypeStruct((rows, Bp), dt)  # noqa: E731
     outs = pl.pallas_call(
         kernel,
-        grid=(grid,),
-        in_specs=in_specs,
-        out_specs=tuple(out_specs),
-        out_shape=tuple(out_shape),
-        input_output_aliases={state_in_idx: 0},
-        scratch_shapes=scratch,
+        grid=(Bp // block_b,),
+        out_shape=(
+            shape(n), shape(m), shape(m),  # x, z, y (in place)
+            shape(n), shape(m),  # dx, dy
+            shape(W * B2),  # h: forward-pass scratch
+        ),
+        input_output_aliases={9: 0, 10: 1, 11: 2},
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=block_b // 32 or 1, num_stages=1
+        ),
         interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
+        name="admm_chunk",
     )(*inputs)
-
-    state_out = outs[0].reshape(W, SRp, B)
-    dxdy_out = None if emit_term else outs[1].reshape(W, DRp, B)
-    acc = outs[3].reshape(-1, B) if emit_term else None
-    if state_pack is not None:
-        if emit_term:
-            return state_out, dxdy_out, acc
-        return state_out, dxdy_out
-    x2, z2, y2 = unpack_state(scaled, state_out)
-    dx2 = dy2 = None
-    if not emit_term:
-        dx2, dy2 = unpack_dxdy(scaled, dxdy_out)
-    if return_packed:
-        out = (x2, z2, y2, dx2, dy2, state_out, dxdy_out)
-    else:
-        out = (x2, z2, y2, dx2, dy2)
-    return out + (acc,) if emit_term else out
+    return tuple(o[:, :B] for o in outs[:5])

@@ -4,17 +4,17 @@ Same OSQP semantics as :mod:`osqp_solver_tpu.ops.admm` (Ruiz equilibration,
 σ/ρ reduced-KKT, projection, α=1.6 over-relaxation, per-row ρ with
 per-problem adaptation, OSQP-default termination, infeasibility
 certificates — reference anchor ``/root/reference/src/osqp-wrapper.h`` and
-SURVEY §2.2), but the batch axis lives *last* on every array so the whole
-loop runs in the Pallas factor/solve kernels' native (sublane, lane) layout:
+SURVEY §2.2), but the batch axis lives *last* on every array — the fused
+chunk kernel's layout (:mod:`.admm_fused`: one row of an array across the
+batch is one coalesced load):
 
 * ``vmap``-free: reductions are explicit ``axis=0`` (row axis), per-problem
   scalars are ``(B,)`` vectors;
-* no ``custom_vmap`` relayout at kernel boundaries — at batch 1024 those
-  transposes cost ~3.6 ms per 59 MB operand and dominated both the
-  per-iteration KKT solve and every ρ-adapt refactor of the vmapped path;
+* each chunk of iterations runs as the fused kernel or as XLA ops, as
+  :func:`.backend.admm_chunk` decides; termination, certificates and ρ
+  adaptation are XLA in both cases;
 * ρ-adapt refactors assemble the KKT directly in lane layout
-  (``LaneTrajectoryQP.kkt_blocks``) and feed ``factor_lane_major`` with no
-  intermediate relayout.
+  (``LaneTrajectoryQP.kkt_blocks``).
 
 Parity with the vmapped driver is pinned by ``tests/test_admm_lane.py``.
 """
@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
 from .admm import (
     DIV_TOL,
@@ -38,8 +38,11 @@ from .admm import (
     _stall_reset,
     _stall_update,
 )
+from . import backend
 from .ruiz import MAX_SCALING, MIN_SCALING, Scaling, _limit
 from .status import ExitCode
+
+_HI = jax.lax.Precision.HIGHEST  # f32 products never run as TF32
 
 
 # ---------------------------------------------------------------------------
@@ -48,27 +51,12 @@ from .status import ExitCode
 
 
 def ruiz_equilibrate_lane(qp, iters: int = 10):
-    """Dispatch: Pallas streaming kernel on TPU for waypoint-layout batches
-    (one program for all iterations — see :mod:`ops.ruiz_pallas`), jnp
-    norm-only fallback otherwise."""
-    from .ruiz_pallas import (
-        ruiz_equilibrate_lane_kernel,
-        ruiz_kernel_supported,
-    )
-
-    if jax.default_backend() == "tpu" and ruiz_kernel_supported(qp):
-        return ruiz_equilibrate_lane_kernel(qp, iters)
-    return _ruiz_equilibrate_lane_jnp(qp, iters)
-
-
-def _ruiz_equilibrate_lane_jnp(qp, iters: int = 10):
     """Batch-last Ruiz (OSQP ``scaling.c`` semantics — see
     :func:`osqp_solver_tpu.ops.ruiz.ruiz_equilibrate`): per-problem scalars
     are ``(B,)``, reductions run over the row axis.
 
     Norm-only iterations: instead of materializing the 21-array scaled
-    container twice per iteration (the naive form costs ~40 ms of a 119 ms
-    batch-1024 solve on v5e), each iteration computes the scaled row/column
+    container twice per iteration, each iteration computes the scaled row/column
     maxima directly from the base absolute coefficients weighted by the
     running (D, E, c) — elementwise-identical values (|a·e·d| = |a|·e·d for
     positive scalings, same multiply grouping as ``scale_data``) — and the
@@ -268,10 +256,8 @@ def init_state_lane(
 def _round_factor(factor, mode: str):
     """Round-trip every factor leaf through a 2-byte storage dtype
     (``Settings.factor_round``): the solve then sees exactly the values a
-    reduced-precision factor stream would carry.  This is the SIMULATION
-    side of the optimization — the fused kernel's real 2-byte stream (same
-    values, half the HBM bytes) is gated on this knob proving convergence.
-    """
+    2-byte factor would hold, while every path still reads it at full
+    width."""
     if mode == "none":
         return factor
     dt = {"f16": jnp.float16, "bf16": jnp.bfloat16}[mode]
@@ -288,7 +274,7 @@ def _round_factor(factor, mode: str):
     )
 
 
-def _anderson_step(scaled, st, settings: Settings, use_fused, reset_mask):
+def _anderson_step(scaled, st, settings: Settings, reset_mask):
     """Safeguarded Anderson extrapolation of the chunk fixed-point map.
 
     One chunk of ``check_termination`` ADMM iterations is a fixed-point map
@@ -311,12 +297,7 @@ def _anderson_step(scaled, st, settings: Settings, use_fused, reset_mask):
     mh = settings.anderson
     n = scaled.q.shape[0]
 
-    if use_fused:
-        from .admm_fused import pack_state, unpack_state
-
-        x0, z0, y0 = unpack_state(scaled, st.x)
-    else:
-        x0, z0, y0 = st.x, st.z, st.y
+    x0, z0, y0 = st.x, st.z, st.y
     w0 = z0 + y0 / st.rho_vec
     v_out = jnp.concatenate([x0, w0], axis=0)  # (d, B)
     f = v_out - st.aa_vin
@@ -333,7 +314,7 @@ def _anderson_step(scaled, st, settings: Settings, use_fused, reset_mask):
     aa_f = jnp.where(sm, f[None], st.aa_f)
 
     # α ∝ M⁻¹1 with M = FᵀF + λ·(tr(M)/mh)·I, normalized to Σα = 1.
-    M = jnp.einsum("idb,jdb->bij", aa_f, aa_f)
+    M = jnp.einsum("idb,jdb->bij", aa_f, aa_f, precision=_HI)
     tr = jnp.trace(M, axis1=1, axis2=2)
     lam = settings.anderson_reg * tr / mh + 1e-30
     M = M + lam[:, None, None] * jnp.eye(mh, dtype=M.dtype)
@@ -342,7 +323,7 @@ def _anderson_step(scaled, st, settings: Settings, use_fused, reset_mask):
     )[..., 0]
     s = jnp.sum(a, axis=1, keepdims=True)
     alpha = a / jnp.where(jnp.abs(s) < 1e-12, 1.0, s)
-    v_acc = jnp.einsum("bi,idb->db", alpha, aa_g)
+    v_acc = jnp.einsum("bi,idb->db", alpha, aa_g, precision=_HI)
     bad = (
         ~jnp.isfinite(jnp.max(jnp.abs(v_acc), axis=0))
         | (jnp.abs(s[:, 0]) < 1e-12)
@@ -358,10 +339,7 @@ def _anderson_step(scaled, st, settings: Settings, use_fused, reset_mask):
     xn = jnp.where(frozen, x0, xn)
     zn = jnp.where(frozen, z0, zn)
     yn = jnp.where(frozen, y0, yn)
-    if use_fused:
-        st = st.replace(x=pack_state(scaled, xn, zn, yn))
-    else:
-        st = st.replace(x=xn, z=zn, y=yn)
+    st = st.replace(x=xn, z=zn, y=yn)
     v_in_next = jnp.concatenate([xn, zn + yn / st.rho_vec], axis=0)
     return st.replace(
         aa_g=aa_g,
@@ -419,9 +397,8 @@ def _iteration(scaled, st: LaneADMMState, factor, settings: Settings):
 class TermQuantities(NamedTuple):
     """Per-problem (B,) reductions feeding the OSQP termination decision.
 
-    Everything data-dependent the decision needs, so it can be produced
-    either by the jnp matvec path (:func:`_termination_quantities`) or by
-    the streaming residual kernel (:mod:`ops.residuals_pallas`)."""
+    Everything data-dependent the decision needs, produced by
+    :func:`_termination_quantities`."""
 
     prim_res: jnp.ndarray
     dual_res: jnp.ndarray
@@ -663,41 +640,17 @@ def solve_batched_lane(
     return result
 
 
-_STREAM_VALUES = ("none", "f16", "bf16")
+_FACTOR_ROUND_VALUES = ("none", "f16", "bf16")
 
 
-def _validate_stream_settings(settings: Settings) -> None:
-    """Fail fast on invalid factor-stream settings (advisor r4): a typo'd
-    value would otherwise surface as a bare KeyError deep inside
-    ``_round_factor``/``_solve_core``."""
-    for name in ("factor_round", "factor_warmup_stream"):
-        val = getattr(settings, name)
-        if val not in _STREAM_VALUES:
-            raise ValueError(
-                f"Settings.{name}={val!r}: allowed values are "
-                f"{_STREAM_VALUES}"
-            )
-
-
-def build_const_packs(scaled, scaling: Scaling):
-    """Bounds-independent kernel constants for :func:`_solve_core`.
-
-    Everything here depends only on A/P/q and the (frozen) scaling — valid
-    across any number of bounds-only updates (the lane-session fast path).
-    """
-    from .admm_fused import build_coef_pack
-    from .residuals_pallas import build_residual_packs
-
-    rowc, varc, Pdp, Plf, norm_Dq = build_residual_packs(scaled, scaling)
-    Rp = scaled.rows_per_waypoint_padded
-    return {
-        "coef": build_coef_pack(scaled),
-        "varc": varc,
-        "Pdp": Pdp,
-        "Plf": Plf,
-        "norm_Dq": norm_Dq,
-        "EEinv": rowc[:, : 2 * Rp],  # (W, [E; Einv] rows, B)
-    }
+def _validate_factor_round(settings: Settings) -> None:
+    """Fail fast on an invalid ``factor_round``: a typo'd value would
+    otherwise surface as a bare KeyError deep inside ``_round_factor``."""
+    if settings.factor_round not in _FACTOR_ROUND_VALUES:
+        raise ValueError(
+            f"Settings.factor_round={settings.factor_round!r}: allowed "
+            f"values are {_FACTOR_ROUND_VALUES}"
+        )
 
 
 def identity_scaling_lane(base) -> Scaling:
@@ -714,123 +667,54 @@ def identity_scaling_lane(base) -> Scaling:
 
 def _solve_core(
     base, scaled, scaling: Scaling, settings: Settings,
-    wx=None, wy=None, rb=None, factor=None, cached_packs=None,
+    wx=None, wy=None, rb=None, factor=None,
 ):
     """Chunked ADMM loop on an already-equilibrated lane problem.
 
     ``wx``/``wy``: lane-major unscaled warm starts; ``factor``: a cached KKT
-    factor consistent with ``rb`` (packed when the fused path is active,
-    full-block otherwise — session fast path); ``cached_packs``: the
-    bounds-independent kernel constants from :func:`build_const_packs`
-    (sessions reuse them across re-solves — only the l/u-derived packs are
-    rebuilt per call).  Returns ``(SolveResult, (x_lane, y_lane, rho_bar,
-    factor))`` where the second element is the lane-major carry a session
-    threads into the next solve with zero relayouts.
+    factor consistent with ``rb`` (session fast path).  Each chunk of
+    iterations runs as the fused chunk kernel or as XLA ops, as
+    :func:`.backend.admm_chunk` decides.  Returns ``(SolveResult,
+    (x_lane, y_lane, rho_bar, factor))`` where the second element is the
+    lane-major carry a session threads into the next solve.
     """
-    from .admm_fused import (
-        build_coef_pack,
-        build_lu_pack,
-        fused_admm_chunk,
-        fused_chunk_supported,
-        pack_factor,
-        pack_state,
-        term_fused_supported,
-        unpack_state,
-    )
-    from .kkt_factor_pallas import factor_packed_lane, factor_packed_supported
+    from . import admm_fused
 
-    _validate_stream_settings(settings)
-    use_fused = fused_chunk_supported(scaled, settings)
-    if (
-        use_fused
-        and settings.factor_warmup_stream == "f16"
-        and settings.termination_warmup > 0  # warmup stream never built at 0
-        and jax.default_backend() != "cpu"
-    ):
-        # Advisor r4: without this guard a TPU user opting into "f16" gets
-        # an opaque Mosaic kernel-compile failure instead of the documented
-        # unsupported-combination message (Settings.factor_warmup_stream:
-        # Mosaic has no IEEE float16).
-        raise NotImplementedError(
-            "factor_warmup_stream='f16' is not supported on the TPU fused "
-            "chunk path (Mosaic has no IEEE float16). Use 'bf16' (a "
-            "measured negative — see Settings) or 'none'."
-        )
-    use_packed_factor = use_fused and factor_packed_supported(scaled)
-    use_term_fused = term_fused_supported(scaled, settings)
-    # Gain-free factor form (Settings.factor_form="hrec"): the packed
-    # factor is (cholp, None) and the chunk kernel rebuilds the sparse
-    # coupling in-registers — needs vel-diag P, silently falls back to the
-    # gain form otherwise.
-    use_hrec = (
-        use_fused
-        and settings.factor_form == "hrec"
-        and scaled.p_structure == "vel_diag"
-    )
+    _validate_factor_round(settings)
+    use_kernel = backend.admm_chunk(scaled, settings) == backend.TRITON
+    coef = admm_fused.build_coef_pack(scaled) if use_kernel else None
 
-    if use_fused:
-        from .residuals_pallas import (
-            assemble_term_quantities,
-            build_residual_packs,
-            termination_quantities_kernel,
-        )
+    def run_iters(st, factor, n_iter):
+        """``n_iter`` iterations on a fixed factor (kept out of the carry);
+        each counts only for problems not yet done."""
+        if use_kernel:
+            x, z, y, dx, dy = admm_fused.fused_admm_chunk(
+                scaled, factor, st.x, st.z, st.y, st.rho_vec, st.done,
+                settings, n_iter=n_iter, coef=coef,
+            )
+            return st.replace(
+                x=x, z=z, y=y, dx=dx, dy=dy,
+                iterations=st.iterations
+                + jnp.where(st.done, 0, n_iter).astype(jnp.int32),
+            )
+        return jax.lax.fori_loop(
+            0,
+            n_iter,
+            lambda i, s: _iteration(
+                scaled, s.replace(factor=None), factor, settings
+            ),
+            st.replace(factor=None),
+        ).replace(factor=st.factor)
 
-        # Constants per solve, computed once outside the while loop; the
-        # carried factor is packed triangular (54% of the full-block bytes —
-        # the while carry round-trips ~28 µs/MB per chunk on TPU, so carry
-        # bytes are as expensive as streamed bytes here).  dx/dy leave the
-        # carry entirely: the kernel emits the last iteration's deltas fresh
-        # each chunk (zeros for frozen problems, whose certificates are
-        # already decided), and termination consumes them within the body.
-        lu_pack = build_lu_pack(scaled)
-        if cached_packs is None:
-            coef_pack = build_coef_pack(scaled)
-            resid_packs = build_residual_packs(scaled, scaling) + (
-                scaling.cinv,
-            )
-        else:
-            coef_pack = cached_packs["coef"]
-            W_, Rp_ = scaled.waypoints, scaled.rows_per_waypoint_padded
-            B_ = scaled.batch
-            rowc = jnp.concatenate(
-                [
-                    cached_packs["EEinv"],
-                    scaled.l.reshape(W_, Rp_, B_),
-                    scaled.u.reshape(W_, Rp_, B_),
-                ],
-                axis=1,
-            )
-            resid_packs = (
-                rowc,
-                cached_packs["varc"],
-                cached_packs["Pdp"],
-                cached_packs["Plf"],
-                cached_packs["norm_Dq"],
-                scaling.cinv,
-            )
-
-    def fresh_factor(rho_bar_arr, rho_vec_arr):
-        """Packed (fused) or full-block (generic) factor for a given ρ."""
-        if use_packed_factor:
-            # One streaming kernel: assemble+factor+pack, no (W,2N,2N,B)
-            # KKT blocks ever materialize (ops/kkt_factor_pallas.py).
-            f = factor_packed_lane(
-                scaled, rho_vec_arr, settings.sigma, coef=coef_pack,
-                emit_gain=not use_hrec,
-            )
-            return _round_factor(f, settings.factor_round)
+    def fresh_factor(rho_vec_arr):
         f = scaled.kkt_factor(rho_vec_arr, settings.sigma)
-        if not use_fused:
-            return _round_factor(f, settings.factor_round)
-        pf = pack_factor(scaled, f)
-        pf = (pf[0], None) if use_hrec else pf
-        return _round_factor(pf, settings.factor_round)
+        return _round_factor(f, settings.factor_round)
 
     if rb is None:
         rb = jnp.full((base.q.shape[-1],), settings.rho, base.q.dtype)
     rho_vec0 = _rho_vec(rb, scaled.l, scaled.u)
     if factor is None:
-        factor = fresh_factor(rb, rho_vec0)
+        factor = fresh_factor(rho_vec0)
     st = init_state_lane(
         scaled, settings, wx, wy, scaling,
         rho_bar=rb, rho_vec=rho_vec0, factor=factor,
@@ -839,74 +723,22 @@ def _solve_core(
     def cond(st):
         return jnp.any((~st.done) & (st.iterations < settings.max_iter))
 
-    if use_fused:
-        # The state crosses chunks PACKED (x holds the (W, SRp, B) pack;
-        # z/y/dx/dy drop out of the carry) — pack once here, unpack once
-        # after the loop, zero relayouts per chunk.
-        st = st.replace(
-            x=pack_state(scaled, st.x, st.z, st.y),
-            z=None, y=None, dx=None, dy=None,
-        )
-
+    # Cold solves of a known class never converge before a known floor, so
+    # the first ``termination_warmup`` iterations run as the loop's first
+    # chunk with no check after it (the early checks' fixed costs are
+    # skipped).  Its iteration count is a runtime value, so one chunk call
+    # site (one compiled kernel) serves the whole solve.  Warm-started
+    # sessions should keep termination_warmup=0.
     warmup = min(settings.termination_warmup, settings.max_iter)
-    if warmup > 0:
-        # One big unchecked chunk before the cadence starts: cold solves of
-        # a known class never converge before a known floor, so the early
-        # checks' fixed costs (dispatch, fused-termination tail,
-        # decide/cond) are skipped.  Warm-started sessions should keep
-        # termination_warmup=0.
-        #
-        # factor_warmup_stream: the warmup chunk may stream a 2-byte factor
-        # (half the dominant stream's bytes) — the pre-convergence floor
-        # doesn't need the last mantissa bits; the cadence below always
-        # uses the full f32 factor (see Settings).
-        wf = st.factor
-        if settings.factor_warmup_stream != "none":
-            half_dt = {"f16": jnp.float16, "bf16": jnp.bfloat16}[
-                settings.factor_warmup_stream
-            ]
-            if use_fused:
-                # Real 2-byte stream: the chunk kernel upcasts the CHOL
-                # buffer on read (chol_at); the gain pack must stay f32 —
-                # its VMEM scratch (gbuf) is allocated at the working dtype
-                # and read without an upcast, so casting it would pair a
-                # 2-byte HBM source with an f32 buffer.
-                cholp = st.factor[0].astype(half_dt)
-                wf = (cholp,) + tuple(st.factor[1:])
-            else:
-                # Flat path: value-equivalent rounding (simulation).
-                wf = _round_factor(st.factor, settings.factor_warmup_stream)
-        if use_fused:
-            sp, _ = fused_admm_chunk(
-                scaled, None, None, None, None, st.rho_vec, st.done,
-                settings, coef=coef_pack, lu=lu_pack,
-                packed_factor=wf, state_pack=st.x, n_iter=warmup,
-            )
-            st = st.replace(
-                x=sp, iterations=st.iterations + jnp.int32(warmup)
-            )
-        else:
-            # _iteration counts its own iterations.
-            factor0 = wf
-            st = jax.lax.fori_loop(
-                0,
-                warmup,
-                lambda i, s: _iteration(
-                    scaled, s.replace(factor=None), factor0, settings
-                ),
-                st.replace(factor=None),
-                unroll=settings.inner_unroll,
-            ).replace(factor=st.factor)
+
+    def anderson_input(st):
+        return jnp.concatenate([st.x, st.z + st.y / st.rho_vec], axis=0)
 
     if settings.anderson > 0:
         # Anderson-acceleration carry: ring history of chunk-map outputs /
         # residuals on v = (x, w = z + y/ρ), the current chunk's input, and
         # the safeguard norm (see _anderson_step).
-        if use_fused:
-            x0_, z0_, y0_ = unpack_state(scaled, st.x)
-        else:
-            x0_, z0_, y0_ = st.x, st.z, st.y
-        v0 = jnp.concatenate([x0_, z0_ + y0_ / st.rho_vec], axis=0)
+        v0 = anderson_input(st)
         B_ = v0.shape[-1]
         st = st.replace(
             aa_g=jnp.zeros((settings.anderson,) + v0.shape, v0.dtype),
@@ -916,65 +748,9 @@ def _solve_core(
             aa_fnorm=jnp.full((B_,), jnp.inf, v0.dtype),
         )
 
-    if use_term_fused:
-        # (EEinv, varc, Pdp, Plf): termination reductions ride the chunk
-        # kernel's final backward pass — no separate streaming pass.
-        Rp_ = scaled.rows_per_waypoint_padded
-        term_packs = (resid_packs[0][:, : 2 * Rp_],) + resid_packs[1:4]
-        norm_Dq = resid_packs[4]
-
-    def chunk(st):
-        # Factor constant within a chunk — keep it out of the carry.
-        factor = st.factor
-        if use_term_fused:
-            sp, dp, acc = fused_admm_chunk(
-                scaled, None, None, None, None, st.rho_vec, st.done,
-                settings, coef=coef_pack, lu=lu_pack, packed_factor=factor,
-                state_pack=st.x, term_packs=term_packs,
-            )
-            st = st.replace(
-                x=sp,
-                iterations=st.iterations
-                + jnp.where(st.done, 0, settings.check_termination).astype(
-                    jnp.int32
-                ),
-            )
-            tq = assemble_term_quantities(acc, scaling.cinv, norm_Dq)
-            st, norms = _termination_decide(st, tq, settings)
-            st = st.replace(factor=factor)
-        elif use_fused:
-            sp, dp = fused_admm_chunk(
-                scaled, None, None, None, None, st.rho_vec, st.done,
-                settings, coef=coef_pack, lu=lu_pack, packed_factor=factor,
-                state_pack=st.x,
-            )
-            st = st.replace(
-                x=sp,
-                iterations=st.iterations
-                + jnp.where(st.done, 0, settings.check_termination).astype(
-                    jnp.int32
-                ),
-            )
-            # Certificates/residuals come straight from the streaming
-            # residual kernel on the chunk's packed outputs — dx/dy never
-            # materialize in flat form.
-            tq = termination_quantities_kernel(
-                scaled, sp, dp, coef_pack, resid_packs
-            )
-            st, norms = _termination_decide(st, tq, settings)
-            st = st.replace(factor=factor)
-        else:
-            st = jax.lax.fori_loop(
-                0,
-                settings.check_termination,
-                lambda i, s: _iteration(
-                    scaled, s.replace(factor=None), factor, settings
-                ),
-                st.replace(factor=None),
-                unroll=settings.inner_unroll,
-            ).replace(factor=factor)
-            st = st.replace(factor=factor)
-            st, norms = _termination(base, scaled, scaling, st, settings)
+    def check(st):
+        """Termination, ρ adaptation and the Anderson step after a chunk."""
+        st, norms = _termination(base, scaled, scaling, st, settings)
         aa_reset = jnp.zeros_like(st.done)
         if settings.adaptive_rho:
             interval = max(
@@ -990,20 +766,34 @@ def _solve_core(
                 st = st.replace(
                     rho_bar=rho_bar,
                     rho_vec=rho_vec,
-                    factor=fresh_factor(rho_bar, rho_vec),
+                    factor=fresh_factor(rho_vec),
                 )
                 return _stall_reset(st, adapt, settings)
 
             st = jax.lax.cond(jnp.any(adapt), do_adapt, lambda s: s, st)
             aa_reset = adapt  # w = z + y/ρ changes scale under the new ρ
         if settings.anderson > 0:
-            st = _anderson_step(scaled, st, settings, use_fused, aa_reset)
+            st = _anderson_step(scaled, st, settings, aa_reset)
         return st
 
-    st = jax.lax.while_loop(cond, chunk, st)
-    if use_fused:
-        x, z, y = unpack_state(scaled, st.x)
-        st = st.replace(x=x, z=z, y=y)
+    def after_warmup(st):
+        if settings.anderson > 0:
+            st = st.replace(aa_vin=anderson_input(st))
+        return st
+
+    def chunk(carry):
+        st, first = carry
+        if warmup > 0:
+            n = jnp.where(first, warmup, settings.check_termination)
+            st = run_iters(st, st.factor, n)
+            st = jax.lax.cond(first, after_warmup, check, st)
+        else:
+            st = check(run_iters(st, st.factor, settings.check_termination))
+        return st, jnp.zeros((), bool)
+
+    st, _ = jax.lax.while_loop(
+        lambda c: cond(c[0]), chunk, (st, jnp.asarray(warmup > 0))
+    )
     if settings.polish:
         st = _polish(base, scaled, scaling, st, settings)
     carry = (

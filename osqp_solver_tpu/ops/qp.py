@@ -1,14 +1,14 @@
 """QP problem containers and the operator protocol the ADMM core solves.
 
-The TPU-native replacement for OSQP's CSC-sparse problem data
+The JAX-native replacement for OSQP's CSC-sparse problem data
 (``/root/reference/src/osqp-wrapper.h:16-31``): problems are pytree
 dataclasses with *static shapes*, and every structure the solver needs is
 exposed through a small operator protocol so the same ADMM core runs on
 
 * :class:`DenseQP` — dense ``P``/``A`` (batches of small problems; Cholesky
-  of the reduced KKT on the MXU), and
+  of the reduced KKT, XLA's batched Cholesky), and
 * the block-tridiagonal trajectory QP in
-  :mod:`osqp_solver_tpu.gomp.trajectory_qp` (banded KKT, scan/Pallas solves).
+  :mod:`osqp_solver_tpu.gomp.trajectory_qp` (banded KKT, scan solves).
 
 Protocol (duck-typed; all methods jit/vmap-safe, shapes static):
 
@@ -24,11 +24,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
-# TPU matmuls default to reduced-precision f32 (bf16 passes); ADMM needs the
-# real thing — exact accumulation keeps factor/solve consistent and
-# convergence fast (the Pallas banded kernels are exact by construction).
+# Accelerator f32 matmuls may default to reduced precision (bf16 passes,
+# TF32); ADMM needs the real thing — exact accumulation keeps factor/solve
+# consistent and convergence fast.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -87,20 +87,18 @@ class DenseQP:
 
     def kkt_factor(self, rho_vec, sigma):
         """Cholesky of ``P + σI + Aᵀ diag(ρ) A`` (SPD by construction — the
-        TPU-native analogue of qdldl's LDLᵀ of the quasi-definite KKT used by
-        OSQP, SURVEY.md §2.2).  Under ``vmap`` on TPU the batch dispatches to
-        the lane-major Pallas kernel (:mod:`..ops.pallas_dense`)."""
-        from .pallas_dense import dense_cholesky
-
+        JAX-native analogue of qdldl's LDLᵀ of the quasi-definite KKT used by
+        OSQP, SURVEY.md §2.2)."""
         n = self.n
         M = self.P + sigma * jnp.eye(n, dtype=self.P.dtype)
         M = M + jnp.matmul(self.A.T, rho_vec[:, None] * self.A, precision=_HI)
-        return dense_cholesky(M)
+        return jnp.linalg.cholesky(M)
 
     def kkt_solve(self, factor, rhs):
-        from .pallas_dense import dense_chol_solve
-
-        return dense_chol_solve(factor, rhs)
+        z = jax.scipy.linalg.solve_triangular(factor, rhs, lower=True)
+        return jax.scipy.linalg.solve_triangular(
+            jnp.swapaxes(factor, -1, -2), z, lower=False
+        )
 
 
 def dense_qp(P, q, A, l, u, dtype=None) -> DenseQP:

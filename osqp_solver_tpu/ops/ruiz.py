@@ -1,6 +1,6 @@
 """Modified Ruiz equilibration with cost normalization.
 
-TPU-native implementation of OSQP's problem scaling (OSQP ``scaling.c``
+JAX-native implementation of OSQP's problem scaling (OSQP ``scaling.c``
 semantics; the reference leaves ``settings.scaling`` at its default of 10
 iterations, ``/root/reference/src/osqp-wrapper.h:26-27``).  The scaled problem
 is ``P̄ = c·D P D``, ``q̄ = c·D q``, ``Ā = E A D``, ``l̄ = E l``, ``ū = E u``;

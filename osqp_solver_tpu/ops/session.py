@@ -22,7 +22,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
 from . import admm
 from .admm import ADMMState, Settings, SolveResult
@@ -165,7 +165,7 @@ def solve(
 
 def mpc_scan(session: Session, updates, apply_update, settings: Settings = Settings()):
     """MPC sweep: ``lax.scan`` over parameter updates with on-device carried
-    state (warm starts + cached factor) — the TPU-native replacement for the
+    state (warm starts + cached factor) — the JAX-native replacement for the
     reference's sequential warm-started re-solves (``gomp-solver.h:41-52,65``;
     BASELINE config 4).
 

@@ -5,9 +5,9 @@ The scalar :mod:`osqp_solver_tpu.ops.session` mirrors the reference's
 problem; this is the same OSQP session contract — equilibrate once with
 *frozen* scaling, cache the KKT factorization, carry x/y/ρ across
 ``Solve()`` calls — for a whole batch in the lane (batch-last) layout, so
-every re-solve runs the streaming Pallas kernel pipeline
-(:mod:`ops.admm_fused` / :mod:`ops.kkt_factor_pallas`) with zero relayouts
-and **zero refactorizations** on the bounds-update fast path.
+every re-solve runs the lane driver (:mod:`ops.admm_lane`, with the fused
+chunk kernel where :mod:`ops.backend` selects it) with zero relayouts and
+**zero refactorizations** on the bounds-update fast path.
 
 Production shape: B independent receding-horizon controllers (one QP per
 robot) stepped together — per tick, update each problem's bounds
@@ -23,12 +23,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
 from .admm import Settings, _rho_vec
 from .admm_lane import (
     _solve_core,
-    build_const_packs,
     identity_scaling_lane,
     ruiz_equilibrate_lane,
 )
@@ -44,7 +43,6 @@ class LaneSession:
     warm_y: jnp.ndarray  # (m, B) unscaled dual carry
     rho_bar: jnp.ndarray  # (B,) carried ρ̄ (advanced by adaptation)
     factor: object  # cached KKT factor for (scaled, rho_bar)
-    cache: object = None  # bounds-independent kernel packs (fused path)
 
 
 def setup_lane(qps, settings: Settings = Settings()) -> LaneSession:
@@ -66,13 +64,6 @@ def setup_lane(qps, settings: Settings = Settings()) -> LaneSession:
     dtype = qps.q.dtype
     rho_bar = jnp.full((B,), settings.rho, dtype)
     factor = _fresh_factor(scaled, rho_bar, settings)
-    from .admm_fused import fused_chunk_supported
-
-    cache = (
-        build_const_packs(scaled, scaling)
-        if fused_chunk_supported(scaled, settings)
-        else None
-    )
     return LaneSession(
         base=qps,
         scaled=scaled,
@@ -81,29 +72,11 @@ def setup_lane(qps, settings: Settings = Settings()) -> LaneSession:
         warm_y=jnp.zeros((m, B), dtype),
         rho_bar=rho_bar,
         factor=factor,
-        cache=cache,
     )
 
 
 def _fresh_factor(scaled, rho_bar, settings: Settings):
-    """Factor in the representation the solve path will consume."""
-    from .admm_fused import fused_chunk_supported, pack_factor
-    from .kkt_factor_pallas import factor_packed_lane, factor_packed_supported
-
     rho_vec = _rho_vec(rho_bar, scaled.l, scaled.u)
-    if fused_chunk_supported(scaled, settings):
-        # Gain-free (hrec) form: skip computing/streaming the gain pack at
-        # setup too — mirrors admm_lane._solve_core's use_hrec gate.
-        hrec = (
-            settings.factor_form == "hrec"
-            and scaled.p_structure == "vel_diag"
-        )
-        if factor_packed_supported(scaled):
-            return factor_packed_lane(
-                scaled, rho_vec, settings.sigma, emit_gain=not hrec
-            )
-        pf = pack_factor(scaled, scaled.kkt_factor(rho_vec, settings.sigma))
-        return (pf[0], None) if hrec else pf
     return scaled.kkt_factor(rho_vec, settings.sigma)
 
 
@@ -119,18 +92,15 @@ def update_bounds_lane(
 
     The cached factor assumes each row's classification (equality / loose /
     finite → ρ_vec) is unchanged; an unguarded flip stalls convergence
-    (measured ~8× the iterations on an equality→box flip,
-    tests/test_reclassification.py) though termination still evaluates TRUE
+    (tests/test_reclassification.py) though termination still evaluates TRUE
     residuals so accepted solutions remain optimal-to-tolerance.  With
     ``guard_reclassification=True`` the classification is compared
     elementwise and the WHOLE batch refactors under a scalar ``lax.cond``
     when any row of any problem flipped — zero factor cost on the (common)
-    stable path, one batched refactor otherwise.  Off by default FROM DATA
-    (r3, TPU v5e, honest W=100 class, batch 1024, stable goal-shift tick):
-    guard off 3.83 ms/tick vs on 4.30 ms/tick — a 12% tax paid every tick
-    to insure against a hazard the fleet path avoids by construction and
-    that can only stall (never corrupt) a solve.  Turn it on for bound
-    sweeps that may cross equality↔box boundaries."""
+    stable path, one batched refactor otherwise.  Off by default: the guard
+    is a per-tick cost that insures against a hazard the fleet path avoids
+    by construction and that can only stall (never corrupt) a solve.  Turn
+    it on for bound sweeps that may cross equality↔box boundaries."""
     s = session.scaling
     old_rho = _rho_vec(
         session.rho_bar, session.scaled.l, session.scaled.u
@@ -157,7 +127,7 @@ def solve_lane(
     result, (x, y, rho_bar, factor) = _solve_core(
         session.base, session.scaled, session.scaling, settings,
         wx=session.warm_x, wy=session.warm_y, rb=session.rho_bar,
-        factor=session.factor, cached_packs=session.cache,
+        factor=session.factor,
     )
     return (
         session.replace(warm_x=x, warm_y=y, rho_bar=rho_bar, factor=factor),

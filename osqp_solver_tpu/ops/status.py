@@ -3,7 +3,7 @@
 Mirror of ``osqp::OsqpExitCode`` as consumed by the reference
 (``/root/reference/src/utils.h:11``, ``gomp-solver.h:40-51,68-76``).  Values
 are carried as ``int32`` scalars inside jitted code (one status per problem in
-a batch — the TPU-native replacement for OSQP's per-solve exception/exit-code
+a batch — the JAX-native replacement for OSQP's per-solve exception/exit-code
 flow, SURVEY.md §5 "failure detection").
 """
 from __future__ import annotations

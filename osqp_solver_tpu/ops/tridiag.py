@@ -1,6 +1,6 @@
 """Symmetric block-tridiagonal factorization and solves.
 
-The TPU-native replacement for qdldl's sequential sparse LDLᵀ (SURVEY.md
+The JAX-native replacement for qdldl's sequential sparse LDLᵀ (SURVEY.md
 §2.2): the trajectory QP's reduced KKT matrix ``P + σI + Aᵀdiag(ρ)A`` is
 block-tridiagonal along the time horizon (dynamics/acceleration rows couple
 only waypoints ``t, t+1``; workspace rows touch a single waypoint —
@@ -11,8 +11,8 @@ only waypoints ``t, t+1``; workspace rows touch a single waypoint —
 
 and factor with a block-Cholesky scan (block Thomas algorithm).  All blocks
 are dense little matrices → ``vmap`` over problem batches turns every step
-into batched small-matrix ops.  A Pallas-fused version of the same math lives
-in :mod:`osqp_solver_tpu.ops.pallas_tridiag` (same layout, same results).
+into batched small-matrix ops.  The fused ADMM chunk kernel
+(:mod:`osqp_solver_tpu.ops.admm_fused`) applies the same factor in-kernel.
 
 The multi-device horizon split (Schur-complement reduction over a mesh axis)
 builds on this factorization in :mod:`osqp_solver_tpu.parallel.schur`.
@@ -25,10 +25,9 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import solve_triangular
 
-# TPU matmuls default to reduced-precision passes (bf16); the factor
-# recurrence accumulates that error over W steps and loses positive
-# definiteness for long horizons (W=802 f32: NaN at default precision,
-# 75-iteration convergence with exact f32 accumulation).  These are tiny
+# Accelerator f32 matmuls may default to reduced precision (bf16 passes,
+# TF32); the factor recurrence accumulates that error over W steps and
+# loses positive definiteness for long horizons.  These are tiny
 # latency-bound matrices — exact f32 costs nothing.
 _HI = jax.lax.Precision.HIGHEST
 

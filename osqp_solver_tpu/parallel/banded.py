@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import struct
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..gomp.constraints import INF
@@ -315,11 +315,10 @@ class ShardedBandedQP(BandedQP):
     ``local_chunks > 1`` switches each device's INTERIOR factor/solve from
     the sequential block-tridiagonal scan to a device-local Schur split
     (``parallel/schur.py``) — two-level decomposition.  The scan at small B
-    is latency-bound on TPU (~1 µs per tiny step), so chunking the local
-    interior recovers most of the chip even when the mesh axis is short:
-    measured single-chip, W=10k/B=12, the cached solve at 64 chunks runs
-    10.8× the scan (BASELINE.md scaling section).  Pick
-    ``local_chunks ≈ local_W / 200`` on TPU; 1 (off) on CPU.
+    is a long chain of tiny latency-bound steps on an accelerator, so
+    chunking the local interior can recover the device even when the mesh
+    axis is short.  The best ``local_chunks`` on a GPU is not measured yet;
+    1 (off) on CPU.
     """
 
     n_chunks: int = struct.field(pytree_node=False, default=2)
@@ -647,9 +646,9 @@ def _sharded_solve_2d_fn(mesh: Mesh, settings, baxis: str, haxis: str,
                          Ws: int, B: int, r: int, Kh: int, W: int,
                          leaf_keys, per: int = 1):
     """Jitted 2-D program: problems sharded over ``baxis`` (``per`` problems
-    per batch row — on a pod that axis is laid ACROSS hosts, the DCN
-    direction, since no solver collective crosses it), each problem\'s
-    horizon sharded over ``haxis`` (intra-slice / ICI).  All collectives are
+    per batch row — on a cluster that axis is laid ACROSS hosts, over
+    the network, since no solver collective crosses it), each problem\'s
+    horizon sharded over ``haxis`` (within a host, NVLink).  All collectives are
     emitted on ``haxis`` only; the ``per`` local problems run vmapped
     (batched collectives + the solver\'s own masked convergence)."""
 

@@ -1,6 +1,6 @@
 """Batch-parallel solver: vmapped ADMM sharded over the mesh batch axis.
 
-The TPU-native scale-out of the reference's one-``QPSolver``-per-problem
+The scale-out of the reference's one-``QPSolver``-per-problem
 pattern (``gomp-solver.h:61-64``; SURVEY.md §2.3 "batch parallelism"):
 problems are independent, so the batch axis shards across chips/hosts with
 ``shard_map`` — each device runs its own masked-convergence while-loop over

@@ -20,7 +20,7 @@ is bit-identical to the sharded kernels by construction (tests pin this).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
 from ..gomp.trajectory_qp import TrajectoryQP
 from .schur import schur_factor, schur_solve_cached
@@ -45,13 +45,12 @@ class ChunkedTrajectoryQP(TrajectoryQP):
 def auto_chunks(waypoints: int) -> int:
     """Chunk-count policy for single-device long horizons.
 
-    The sequential block-tridiagonal scan is LATENCY-bound on TPU (~1 µs per
-    tiny B×B step); the r3 hardware sweep at W=10,000/B=12 put the cached
-    Schur solve at 24/23/5.0/3.8/3.7 ms for K=8/16/32/64/128 vs the 40.9 ms
-    scan — interiors of ~150-300 waypoints balance the chunk vmap width
-    against the reduced-system size.  End-to-end full ADMM at K=64: 16.6×
-    (benchmarks/long_horizon.py).  Short horizons keep the scan (the
-    redundancy isn't paid back below a few hundred waypoints)."""
+    The sequential block-tridiagonal scan is a chain of tiny latency-bound
+    B×B steps on an accelerator; interiors of ~150-300 waypoints balance
+    the chunk vmap width against the reduced-system size.  Short horizons
+    keep the scan (the redundancy isn't paid back below a few hundred
+    waypoints).  The policy's constants are not yet measured on a GPU
+    (benchmarks/long_horizon.py measures them)."""
     if waypoints < 512:
         return 1
     return max(2, min(128, waypoints // 160))

@@ -1,10 +1,13 @@
 """Device-mesh helpers for the (batch, horizon) 2-D solver mesh.
 
-The reference has zero parallelism (SURVEY.md §2.3); the TPU framework's
+The reference has zero parallelism (SURVEY.md §2.3); this framework's
 distribution model is: ``batch`` axis = embarrassingly-parallel independent
 QPs (DP analogue), ``horizon`` axis = block-tridiagonal Schur-complement
-partitioning of long trajectories (TP/SP analogue).  Collectives ride ICI
-within a slice; lay the longer mesh axis over ICI-contiguous devices.
+partitioning of long trajectories (TP/SP analogue).  The cards of one host
+are joined all to all (NVLink), so no device order is better than another:
+the mesh shape follows the algorithm alone — all cards on ``batch`` for a
+fleet, all on ``horizon`` for one long trajectory.  Every mesh position
+holds a distinct device.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ def make_mesh(
         assert n % horizon == 0, (n, horizon)
         batch = n // horizon
     assert batch * horizon <= n, f"mesh {batch}x{horizon} > {n} devices"
+    assert len(set(devs)) == n, "devices must be distinct"
     grid = np.asarray(devs[: batch * horizon]).reshape(batch, horizon)
     return Mesh(grid, (BATCH_AXIS, HORIZON_AXIS))
 

@@ -1,21 +1,23 @@
-"""Multi-process (multi-host / DCN-analogue) execution path.
+"""Multi-process (multi-host) execution path.
 
-SURVEY.md §2.3 "communication backend": on a real TPU pod the solver mesh
-spans hosts — collectives ride ICI within a slice and DCN across hosts, and
-JAX's runtime is initialized per-process via ``jax.distributed``.  The
+SURVEY.md §2.3 "communication backend": on a multi-host cluster the solver
+mesh spans hosts — collectives ride NVLink within a host and the network
+across hosts, and JAX's runtime is initialized per-process via
+``jax.distributed``.  The
 reference has no distribution at all (single process, single thread,
 ``osqp-wrapper.h``); this module supplies the process-boundary machinery the
-TPU framework needs and a CPU-process harness that proves the solver's
+framework needs and a CPU-process harness that proves the solver's
 sharded paths (batch + horizon) execute and agree across a REAL process
 boundary (VERDICT r2 next #2 — previously every multi-device artifact was a
 single-process virtual mesh).
 
 Two entry styles:
 
-* ``initialize(...)`` — call once per process before any JAX op.  On TPU
-  pods call it with no arguments (JAX auto-detects the coordinator from the
-  TPU environment); for the CPU harness pass coordinator/process counts and
-  it configures gloo cross-process collectives over TCP — the DCN stand-in.
+* ``initialize(...)`` — call once per process before any JAX op.  Pass
+  the coordinator address, process count and process id unless a cluster
+  launcher JAX recognizes provides them; for the CPU harness also pass
+  counts and it configures gloo cross-process collectives over TCP — the
+  network stand-in.
 * ``python -m osqp_solver_tpu.parallel.multihost --process-id k ...`` —
   one worker of the pytest harness (tests/test_multihost.py spawns two).
   Each worker builds the same deterministic problems, solves them on the
@@ -48,7 +50,7 @@ def initialize(
 ) -> None:
     """Per-process runtime init (call before any JAX computation).
 
-    * TPU pod: ``initialize()`` — everything auto-detected.
+    * Cluster with a launcher JAX recognizes: ``initialize()``.
     * CPU harness (N processes on one machine standing in for N hosts):
       pass all four; forces the CPU platform and gloo collectives so
       ``psum``/``all_gather``/``ppermute`` cross the process boundary.
@@ -182,7 +184,7 @@ def run_worker(out_path: str, batch: int = 8, W_batch: int = 12,
         "ref_iterations": int(ref_h.iterations),
     }
 
-    # ---- 2-D mesh: batch ACROSS processes (DCN), horizon within (ICI) -----
+    # ---- 2-D mesh: batch ACROSS processes, horizon within a process ------
     # The production layout (SURVEY.md §2.3): mesh rows = processes (the
     # batch axis carries no solver collectives, so it is safe on the slow
     # axis), mesh columns = each process's local devices (the Schur

@@ -1,6 +1,6 @@
 """Distributed block-tridiagonal solve via Schur-complement reduction.
 
-The TPU "sequence-parallel" analogue for long trajectory horizons
+The "sequence-parallel" analogue for long trajectory horizons
 (SURVEY.md §2.3 / §5): the banded KKT system couples only neighbouring
 waypoints (``constraint-builder.h:203-219``), so a ``W``-block tridiagonal
 system is partitioned over the mesh ``horizon`` axis as::
@@ -10,7 +10,7 @@ system is partitioned over the mesh ``horizon`` axis as::
 with one ``B×B`` separator block ``s_k`` between adjacent chunks.  Each
 device factors its interior independently (scan-based block Cholesky), forms
 its contributions to the small ``(K-1)·B`` separator Schur system, the
-contributions are ``all_gather``-ed over ICI, every device redundantly solves
+contributions are ``all_gather``-ed over the mesh, every device redundantly solves
 the reduced tridiagonal system (it is tiny), and back-substitution is local.
 One collective round-trip per solve; interior work scales 1/K.
 
@@ -24,7 +24,7 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops.tridiag import block_tridiag_factor, block_tridiag_solve

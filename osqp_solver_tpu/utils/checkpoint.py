@@ -1,7 +1,7 @@
 """Checkpoint / resume for solver state pytrees.
 
 The reference's closest analogue is warm-start threading + trajectory dumps
-(SURVEY.md §5 "checkpoint/resume"); here any flax.struct solver state — a
+(SURVEY.md §5 "checkpoint/resume"); here any solver-state pytree (``osqp_solver_tpu.struct`` dataclass) — a
 :class:`~osqp_solver_tpu.ops.session.Session`, a batch of them, or a
 :class:`SolveResult` — round-trips to a single ``.npz`` file, so long MPC
 sweeps and batched planning jobs can resume after preemption.
@@ -26,7 +26,7 @@ _FORMAT_VERSION = 2
 
 def _fingerprint(pytree) -> str:
     """Stable hash of the pytree structure (static/aux data included via its
-    string form — flax.struct dataclasses render pytree_node=False fields)."""
+    string form — ``osqp_solver_tpu.struct`` dataclasses render their static fields)."""
     s = str(jax.tree_util.tree_structure(pytree))
     return hashlib.sha256(s.encode()).hexdigest()[:16]
 

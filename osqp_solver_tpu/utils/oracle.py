@@ -2,7 +2,7 @@
 
 Builds ``native/osqp_oracle.cpp`` on demand with g++ (cached in
 ``native/build/``) and exposes :func:`solve` with the same semantics as the
-TPU ADMM core — used for cross-validation in tests and as the single-thread
+JAX ADMM core — used for cross-validation in tests and as the single-thread
 CPU baseline anchor (BASELINE.md).  Python↔C++ binding is plain ctypes (no
 pybind11 dependency).
 """

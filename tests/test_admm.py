@@ -154,7 +154,7 @@ def test_jit_eager_equivalence():
 
 
 def test_float32_solves_to_osqp_tolerance():
-    """f32 (TPU-native dtype) still meets OSQP 1e-3-level accuracy on small
+    """f32 (accelerator dtype) still meets OSQP 1e-3-level accuracy on small
     well-conditioned problems."""
     qp = random_qp(jax.random.PRNGKey(5), n=16, m=24, dtype=jnp.float32)
     res = solve(qp)
@@ -220,7 +220,7 @@ def test_auto_refine_policy():
     from osqp_solver_tpu.ops import admm
 
     # With exact f32 accumulation pinned in the factor/solve path, W=802
-    # needs NO refinement (measured: 25 iters on TPU v5e); the policy only
+    # needs NO refinement (CPU f32 exact counts); the policy only
     # adds a safety step beyond the verified range.
     assert admm.refine_steps_for_horizon(100, jnp.float32) == 0
     assert admm.refine_steps_for_horizon(802, jnp.float32) == 0

@@ -21,7 +21,7 @@ from osqp_solver_tpu.gomp.trajectory_qp import (
     with_gomp_boxes,
 )
 from osqp_solver_tpu.gomp.trajectory_qp_lane import to_lane
-from osqp_solver_tpu.ops import admm
+from osqp_solver_tpu.ops import admm, backend
 from osqp_solver_tpu.ops.admm_lane import (
     init_state_lane,
     ruiz_equilibrate_lane,
@@ -373,11 +373,12 @@ def test_rho0_traced_matches_static_rho():
     )
 
 
-@pytest.mark.parametrize("seed,factor_form", [(0, "gain"), (1, "hrec")])
-def test_randomized_bounds_fused_parity(seed, factor_form):
+@pytest.mark.parametrize("seed", [0, 1])
+def test_randomized_bounds_fused_parity(interpret_chunk_kernel, seed):
     """Random per-problem bound perturbations (random tightenings, a few
-    rows flipped to equalities or loosened to ±INF) — the fused lane solve
-    must agree with the vmapped reference core on status and solution."""
+    rows flipped to equalities or loosened to ±INF) — the lane solve
+    through the fused chunk kernel must agree with the vmapped reference
+    core on status and solution."""
     from osqp_solver_tpu.ops.admm import solve_batched
 
     rng = np.random.default_rng(seed)
@@ -395,11 +396,10 @@ def test_randomized_bounds_fused_parity(seed, factor_form):
     pos_l = jnp.where(loosen, -1e30, qps.pos_l)
     qps = qps.replace(vel_l=vel_l, vel_u=vel_u, pos_l=pos_l)
 
-    settings = dataclasses.replace(
-        admm.Settings(), check_termination=5, fused_chunk="on",
-        factor_form=factor_form,
-    )
-    got = solve_batched_lane(to_lane(qps), settings)
+    settings = dataclasses.replace(admm.Settings(), check_termination=5)
+    lane = to_lane(qps).replace(row_layout="waypoint")
+    assert backend.admm_chunk(lane, settings) == backend.TRITON
+    got = solve_batched_lane(lane, settings)
     ref = solve_batched(
         qps, dataclasses.replace(settings, fused_chunk="off")
     )
@@ -410,18 +410,19 @@ def test_randomized_bounds_fused_parity(seed, factor_form):
     )
 
 
-@pytest.mark.parametrize("factor_form", ["gain", "hrec"])
-def test_infeasible_detected_through_fused_emit_path(factor_form):
-    """End-to-end: the fused chunk kernel's in-pass certificate reductions
-    must drive the same non-optimal statuses as the unfused path."""
+@pytest.mark.parametrize("ct", [3, 5])
+def test_infeasible_detected_through_fused_emit_path(
+    interpret_chunk_kernel, ct
+):
+    """End-to-end: the certificates computed from the kernel chunk's deltas
+    must drive the same non-optimal statuses as the XLA chunks, at two
+    check cadences."""
     qps = build_batch(honest=True, tight_obstacle=True)
-    settings = dataclasses.replace(
-        admm.Settings(), check_termination=5, fused_chunk="on",
-        factor_form=factor_form,
-    )
-    got = solve_batched_lane(to_lane(qps), settings)
+    settings = dataclasses.replace(admm.Settings(), check_termination=ct)
+    lane = to_lane(qps).replace(row_layout="waypoint")
+    got = solve_batched_lane(lane, settings)
     ref = solve_batched_lane(
-        to_lane(qps), dataclasses.replace(settings, fused_chunk="off")
+        lane, dataclasses.replace(settings, fused_chunk="off")
     )
     np.testing.assert_array_equal(np.asarray(got.status), np.asarray(ref.status))
     np.testing.assert_array_equal(
@@ -431,21 +432,20 @@ def test_infeasible_detected_through_fused_emit_path(factor_form):
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_anderson_accelerated_solve_is_valid(fused):
+def test_anderson_accelerated_solve_is_valid(interpret_chunk_kernel, fused):
     """Safeguarded Anderson acceleration (Settings.anderson > 0) must reach
     kOptimal through the same residual-based termination — an accepted
     solution is optimal-to-tolerance by construction — and stay close to
-    the plain solve.  Covers the flat and the fused (packed-state) chunk
-    paths, including consistent z/y recovery from the extrapolated w."""
+    the plain solve.  Covers the XLA and the fused-kernel chunk paths,
+    including consistent z/y recovery from the extrapolated w."""
     qps = build_batch(honest=True)
     base = dataclasses.replace(
         admm.Settings(), check_termination=3,
         fused_chunk="on" if fused else "off",
     )
-    plain = solve_batched_lane(to_lane(qps), base)
-    acc = solve_batched_lane(
-        to_lane(qps), dataclasses.replace(base, anderson=4)
-    )
+    lane = to_lane(qps).replace(row_layout="waypoint")
+    plain = solve_batched_lane(lane, base)
+    acc = solve_batched_lane(lane, dataclasses.replace(base, anderson=4))
     assert np.all(np.asarray(plain.status) == ExitCode.kOptimal)
     assert np.all(np.asarray(acc.status) == ExitCode.kOptimal)
     # Both satisfy the same KKT tolerances; they agree to tolerance scale.
@@ -530,8 +530,7 @@ def _prime_history(st, v_out, rng_seed=5):
 @quick
 def test_factor_round_f16_still_converges():
     """Settings.factor_round="f16" (full-solve reduced-precision factor
-    SIMULATION — benchmarks/factor_round_sweep.py is the measurement):
-    termination evaluates TRUE residuals against the rounded-factor
+    values): termination evaluates TRUE residuals against the rounded-factor
     iterates, so accepted solutions remain optimal-to-tolerance; only the
     iteration count may grow."""
     qps = build_batch(honest=True)
@@ -560,7 +559,7 @@ def test_anderson_rho_adaptation_reset_mechanism():
     # Small drift: fnorm tiny, well under safeguard × aa_fnorm=1.0 — only
     # the reset_mask forces the reset.
     out = _anderson_step(
-        scaled, st, settings, use_fused=False,
+        scaled, st, settings,
         reset_mask=jnp.ones_like(st.done),
     )
     np.testing.assert_array_equal(np.asarray(out.aa_n), 1)
@@ -584,7 +583,7 @@ def test_anderson_divergence_safeguard_reset_mechanism():
     # Make the chunk residual f = v_out − aa_vin large vs aa_fnorm=1.0.
     st = st.replace(aa_vin=st.aa_vin - 10.0)
     out = _anderson_step(
-        scaled, st, settings, use_fused=False,
+        scaled, st, settings,
         reset_mask=jnp.zeros_like(st.done),
     )
     np.testing.assert_array_equal(np.asarray(out.aa_n), 1)
@@ -608,7 +607,7 @@ def test_anderson_accept_extrapolates_consistently():
     # Small but NONZERO residual (keeps M well-posed, no growth trigger).
     st = st.replace(aa_vin=st.aa_vin - 0.01)
     out = _anderson_step(
-        scaled, st, settings, use_fused=False,
+        scaled, st, settings,
         reset_mask=jnp.zeros_like(st.done),
     )
     np.testing.assert_array_equal(np.asarray(out.aa_n), 3)
@@ -635,7 +634,7 @@ def test_anderson_done_problems_frozen():
     done = jnp.zeros_like(st.done).at[1].set(True)
     st = st.replace(done=done, aa_vin=st.aa_vin - 0.01)
     out = _anderson_step(
-        scaled, st, settings, use_fused=False,
+        scaled, st, settings,
         reset_mask=jnp.zeros_like(st.done),
     )
     np.testing.assert_allclose(

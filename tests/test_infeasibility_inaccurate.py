@@ -5,7 +5,7 @@ At ``max_iter`` OSQP re-evaluates termination with 10×-relaxed tolerances
 ``kPrimalInfeasibleInaccurate``/``kDualInfeasibleInaccurate`` — part of the
 ``OsqpExitCode`` surface the reference consumes
 (``/root/reference/src/utils.h:11``).  These tests pin that the statuses are
-*reachable* in the TPU core (end-to-end, on deterministic f64 CPU problems
+*reachable* in the JAX core (end-to-end, on deterministic f64 CPU problems
 whose certificate quality at the cut-off sits between ε and 10ε), that the
 decision ladder is correct at the lane-driver level, and that the native C++
 oracle agrees status-for-status across the whole max_iter sweep.

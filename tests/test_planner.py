@@ -638,7 +638,7 @@ def test_run_batch_padded_warm_duals_same_outcomes():
 
 
 def test_ur5e_soa_balls_match_matrix_balls():
-    """The planner run with SoA-evaluator balls (ur5e.make_ball — the TPU
+    """The planner run with SoA-evaluator balls (ur5e.make_ball — the planner
     hot path: batched FK + geometric Jacobian in linearize_workspace AND the
     exact-FK check) produces the same plan as the matrix-FK balls."""
     balls_soa = [

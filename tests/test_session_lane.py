@@ -7,6 +7,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from osqp_solver_tpu.ops import admm
 from osqp_solver_tpu.ops.admm_lane import solve_batched_lane
@@ -26,8 +27,14 @@ SETTINGS = dataclasses.replace(
 SETTINGS_OFF = dataclasses.replace(SETTINGS, fused_chunk="off")
 
 
+@pytest.fixture(autouse=True)
+def _kernel(interpret_chunk_kernel):
+    """Sessions run the fused chunk kernel (interpreted) unless a test
+    asks for 'off'."""
+
+
 def test_setup_solve_matches_batched_solve():
-    lane = build_wp_batch(honest=True)
+    lane = build_wp_batch(honest=True, batch=32)
     sess = setup_lane(lane, SETTINGS)
     sess, res = solve_lane(sess, SETTINGS)
     ref = solve_batched_lane(lane, SETTINGS)
@@ -43,7 +50,7 @@ def test_setup_solve_matches_batched_solve():
 
 
 def test_warm_resolve_converges_faster():
-    lane = build_wp_batch(honest=True)
+    lane = build_wp_batch(honest=True, batch=32)
     sess = setup_lane(lane, SETTINGS)
     sess, res0 = solve_lane(sess, SETTINGS)
     assert np.all(np.asarray(res0.status) == ExitCode.kOptimal)
@@ -65,7 +72,7 @@ def test_warm_resolve_converges_faster():
 
 
 def test_mpc_scan_matches_manual_loop():
-    lane = build_wp_batch(honest=True)
+    lane = build_wp_batch(honest=True, batch=32)
     T = 3
     deltas = 1e-4 * jnp.arange(1, T + 1, dtype=lane.q.dtype)[
         :, None, None
@@ -96,7 +103,7 @@ def test_mpc_scan_matches_manual_loop():
 
 def test_session_fused_off_parity():
     """Session semantics are kernel-independent: fused on == fused off."""
-    lane = build_wp_batch(honest=True)
+    lane = build_wp_batch(honest=True, batch=32)
     sa = setup_lane(lane, SETTINGS)
     sb = setup_lane(lane, SETTINGS_OFF)
     sa, ra = solve_lane(sa, SETTINGS)
@@ -108,17 +115,14 @@ def test_session_fused_off_parity():
 
 
 def test_session_hrec_factor_form():
-    """factor_form="hrec" sessions cache a gain-free factor (cholp, None),
-    match the direct batched hrec solve exactly, and stay close to the
-    gain-form session (algebraically identical, f32 reassociation only)."""
-    S_HREC = dataclasses.replace(SETTINGS, factor_form="hrec")
-    S_GAIN = dataclasses.replace(SETTINGS, factor_form="gain")
-    lane = build_wp_batch(honest=True)
+    """Sessions through the fused kernel's gain-free ('hrec') substitution
+    match their direct batched solve, and the XLA chunk path (which applies
+    the factor's gain blocks) on the same cached factor, up to rounding."""
+    lane = build_wp_batch(honest=True, batch=32)
 
-    sh = setup_lane(lane, S_HREC)
-    assert sh.factor[1] is None  # no gain pack computed at setup
-    sh, rh = solve_lane(sh, S_HREC)
-    ref = solve_batched_lane(lane, S_HREC)
+    sh = setup_lane(lane, SETTINGS)
+    sh, rh = solve_lane(sh, SETTINGS)
+    ref = solve_batched_lane(lane, SETTINGS)
     np.testing.assert_array_equal(
         np.asarray(rh.status), np.asarray(ref.status)
     )
@@ -126,9 +130,9 @@ def test_session_hrec_factor_form():
         np.asarray(rh.x), np.asarray(ref.x), rtol=1e-9, atol=1e-9
     )
 
-    sg = setup_lane(lane, S_GAIN)
-    assert sg.factor[1] is not None
-    sg, rg = solve_lane(sg, S_GAIN)
+    sg = setup_lane(lane, SETTINGS_OFF)
+    assert sg.factor.chol.shape == sh.factor.chol.shape
+    sg, rg = solve_lane(sg, SETTINGS_OFF)
     np.testing.assert_array_equal(
         np.asarray(rh.status), np.asarray(rg.status)
     )

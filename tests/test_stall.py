@@ -189,15 +189,14 @@ def test_stall_update_window_semantics():
 
 
 def test_invalid_stream_settings_fail_fast():
-    """Advisor r4: typo'd factor_round / factor_warmup_stream values raise
-    a clear ValueError naming the setting, not a KeyError deep inside
-    _round_factor."""
+    """A typo'd factor_round value raises a clear ValueError naming the
+    setting, not a KeyError deep inside _round_factor."""
     from tests.test_admm_lane import build_batch
 
     qps = build_batch(honest=False)
-    for name in ("factor_round", "factor_warmup_stream"):
-        s = dataclasses.replace(Settings(), **{name: "fp8"})
-        with pytest.raises(ValueError, match=name):
+    for val in ("fp8", "F16"):
+        s = dataclasses.replace(Settings(), factor_round=val)
+        with pytest.raises(ValueError, match="factor_round"):
             admm_lane.solve_batched_lane(qps, s)
 
 
